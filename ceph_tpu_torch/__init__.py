@@ -1,0 +1,17 @@
+"""ceph_tpu_torch — the erasure-code engine of ``ceph_tpu`` on PyTorch
+and CUDA (NVIDIA Hopper, sm_90a).
+
+It mirrors ``ceph_tpu``'s layout and names so each module's counterpart
+is easy to find:
+
+- ``device``: the device probe; CUDA unless the caller asks for the CPU;
+- ``ops``: GF(2^w) field tables and matrices (numpy), the plain torch
+  region engines (``gf_torch``) and the hand-written Hopper kernels
+  (``gf_cuda`` + ``csrc/``);
+- ``models``: the codec interface, registry and plugins (jerasure, isa,
+  lrc, shec, example);
+- ``tools``: ``ec_benchmark`` and ``ec_non_regression``.
+
+It imports torch, numpy and the standard library, never jax and never
+``ceph_tpu``.
+"""

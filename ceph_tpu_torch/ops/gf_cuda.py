@@ -1,0 +1,273 @@
+"""The Hopper kernels of the GF region engines: build, binding, launches.
+
+Counterpart of ``ceph_tpu/ops/gf_pallas.py``.  Two kernels, written in
+CUDA C++ under ``ceph_tpu_torch/csrc/``:
+
+- ``gf_matmul`` (``csrc/gf_matmul.cu``) replaces
+  ``make_gf_matmul_pallas``: GF(2^w) region product by the doubling
+  method, w = 8 or 16;
+- ``bitmatrix_xor`` (``csrc/bitmatrix_xor.cu``) replaces
+  ``make_bitmatrix_matmul_pallas``: packet XOR over a GF(2) bit-matrix.
+
+Unlike the Pallas kernels, which unroll the matrix at trace time, the
+matrix is a runtime argument: each library is built once, and a matrix
+is packed into a small device tensor (:func:`gf_table`,
+:func:`bitmatrix_table`) that the caller keeps per matrix.
+
+Each source is compiled by ``nvcc`` into a plain-C shared library under
+``ceph_tpu_torch/build/``, at first use, named by a hash of the sources
+and flags, so a second process in the same tree loads it without a
+rebuild.  The libraries are bound with ``ctypes``.  Nothing here runs at
+import: this module imports on hosts without CUDA.
+
+Each wrapper takes CUDA tensors only, launches on the current stream,
+raises :class:`KernelLaunchError` when the launch is refused, and adds
+one to its entry in :data:`launches` for every launch.  The routing
+(CPU tensor -> plain torch version) lives in ``gf_torch``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+SOURCES = {"gf_matmul": "gf_matmul.cu", "bitmatrix_xor": "bitmatrix_xor.cu"}
+HEADERS = ("lanes.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# output-tile widths each library was built for (see the .cu files)
+GF_TILES = (1, 2, 4, 8, 16)
+BITMATRIX_TILES = (8, 16, 32, 64)
+# a block's staged matrix must fit the default dynamic shared memory
+SMEM_BYTES = 48 * 1024
+
+# launches per kernel since the last reset_launches()
+launches = {name: 0 for name in SOURCES}
+
+_P, _I, _N = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    # in, out, table, w, k, m, mt, n4, stream
+    "gf_matmul": [_P, _P, _P, _I, _I, _I, _I, _N, _P],
+    # in, out, masks, K, M, mt, n4, stream
+    "bitmatrix_xor": [_P, _P, _P, _I, _I, _I, _N, _P],
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS_LOCK = threading.Lock()
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error."""
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise KernelBuildError("nvcc not found (PATH or /usr/local/cuda/bin)")
+
+
+def library_path(name: str) -> Path:
+    """Build output for kernel ``name``, keyed on its sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (SOURCES[name], *HEADERS):
+        h.update(f.encode())
+        h.update((CSRC / f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=tuple(SOURCES)) -> dict[str, float]:
+    """Compile each kernel library not built yet, one ``nvcc`` process
+    per source, all started together.  Returns the wall seconds per
+    library compiled by this call (libraries found built are absent).
+    The compiler's output, ``-Xptxas -v`` register counts included, is
+    kept beside each library as ``<library>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    started = {}
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp, path, time.perf_counter())
+    seconds, failures = {}, []
+    for name, (proc, tmp, path, t0) in started.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {SOURCES[name]}:\n{out}")
+            continue
+        path.with_name(path.name + ".log").write_text(out)
+        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    if failures:
+        raise KernelBuildError("\n".join(failures))
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """The compiler output kept by :func:`build` ('' if none)."""
+    log = library_path(name).with_name(library_path(name).name + ".log")
+    return log.read_text() if log.exists() else ""
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LIBS_LOCK:
+        if name not in _LIBS:
+            build((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            fn = getattr(lib, f"{name}_launch")
+            fn.restype = ctypes.c_int
+            fn.argtypes = _ARGTYPES[name]
+            _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def _smallest_tile(rows: int, tiles: tuple[int, ...]) -> int:
+    return next((t for t in tiles if t >= rows), tiles[-1])
+
+
+@dataclass(frozen=True)
+class GFTable:
+    """An [m, k] GF(2^w) matrix packed for ``gf_matmul``: coefficients
+    [tiles, k, mt] int32 on the device, zero past row m."""
+
+    coeffs: torch.Tensor
+    w: int
+    k: int
+    m: int
+    mt: int
+
+
+@dataclass(frozen=True)
+class BitmatrixTable:
+    """An [M, K] GF(2) matrix packed for ``bitmatrix_xor``: masks
+    [tiles, K] int64 on the device, bit i of masks[t, j] set when output
+    t*mt+i takes input row j."""
+
+    masks: torch.Tensor
+    K: int
+    M: int
+    mt: int
+
+
+def gf_table(matrix: np.ndarray, w: int, device: torch.device) -> GFTable:
+    matrix = np.asarray(matrix, dtype=np.int64)
+    m, k = matrix.shape
+    if w not in (8, 16):
+        raise ValueError(f"gf_matmul is built for w=8 and w=16, got {w}")
+    if matrix.size and (matrix.min() < 0 or matrix.max() >= 1 << w):
+        raise ValueError(f"matrix entries must lie in GF(2^{w})")
+    mt = _smallest_tile(m, GF_TILES)
+    if k * mt * 4 > SMEM_BYTES:
+        raise ValueError(f"k={k} rows exceed the kernel's staged matrix")
+    tiles = -(-m // mt)
+    packed = np.zeros((tiles * mt, k), dtype=np.int32)
+    packed[:m] = matrix
+    packed = np.ascontiguousarray(packed.reshape(tiles, mt, k).transpose(0, 2, 1))
+    return GFTable(torch.from_numpy(packed).to(device), w, k, m, mt)
+
+
+def bitmatrix_table(bitmatrix: np.ndarray, device: torch.device) -> BitmatrixTable:
+    bits = np.asarray(bitmatrix) != 0
+    M, K = bits.shape
+    mt = _smallest_tile(M, BITMATRIX_TILES)
+    if K * 8 > SMEM_BYTES:
+        raise ValueError(f"K={K} rows exceed the kernel's staged masks")
+    tiles = -(-M // mt)
+    padded = np.zeros((tiles * mt, K), dtype=np.uint64)
+    padded[:M] = bits
+    weights = np.left_shift(np.uint64(1), np.arange(mt, dtype=np.uint64))
+    masks = np.bitwise_or.reduce(
+        padded.reshape(tiles, mt, K) * weights[None, :, None], axis=1
+    )
+    return BitmatrixTable(torch.from_numpy(masks.view(np.int64)).to(device), K, M, mt)
+
+
+def _check_lanes(x: torch.Tensor, rows: int, table_device: torch.device) -> None:
+    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    if x.device != table_device:
+        raise ValueError(f"lanes on {x.device}, matrix on {table_device}")
+    if x.dtype != torch.int32 or x.dim() != 2 or x.shape[0] != rows:
+        raise ValueError(
+            f"expected int32 lanes [{rows}, N4], got {x.dtype} {tuple(x.shape)}"
+        )
+    if not x.is_contiguous():
+        raise ValueError("lanes must be contiguous")
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        what = "not built for this tile" if rc == -1 else f"cudaError_t {rc}"
+        raise KernelLaunchError(f"{name} launch failed: {what}")
+    launches[name] += 1
+
+
+def gf_matmul(table: GFTable, d32: torch.Tensor) -> torch.Tensor:
+    """data [k, N4] int32 lanes -> parity [m, N4] on the card."""
+    _check_lanes(d32, table.k, table.coeffs.device)
+    n4 = d32.shape[1]
+    out = torch.empty((table.m, n4), dtype=torch.int32, device=d32.device)
+    if n4 == 0 or table.m == 0:
+        return out
+    stream = torch.cuda.current_stream(d32.device).cuda_stream
+    rc = _lib("gf_matmul").gf_matmul_launch(
+        d32.data_ptr(), out.data_ptr(), table.coeffs.data_ptr(),
+        table.w, table.k, table.m, table.mt, n4, stream,
+    )
+    _launched("gf_matmul", rc)
+    return out
+
+
+def bitmatrix_xor(table: BitmatrixTable, p32: torch.Tensor) -> torch.Tensor:
+    """packets [K, N4] int32 lanes -> [M, N4] on the card."""
+    _check_lanes(p32, table.K, table.masks.device)
+    n4 = p32.shape[1]
+    out = torch.empty((table.M, n4), dtype=torch.int32, device=p32.device)
+    if n4 == 0 or table.M == 0:
+        return out
+    stream = torch.cuda.current_stream(p32.device).cuda_stream
+    rc = _lib("bitmatrix_xor").bitmatrix_xor_launch(
+        p32.data_ptr(), out.data_ptr(), table.masks.data_ptr(),
+        table.K, table.M, table.mt, n4, stream,
+    )
+    _launched("bitmatrix_xor", rc)
+    return out

@@ -1,0 +1,1 @@
+"""Operator CLIs: ec_benchmark, ec_non_regression."""
