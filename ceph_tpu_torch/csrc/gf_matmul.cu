@@ -20,11 +20,14 @@
 // - Outputs above MT=16 are split over blockIdx.y; the input is then
 //   read once per output tile.
 //
-// Bound on an H100: by a count from the code, RS(8,3) needs 56
-// doublings and 83 XOR terms per column of k=8 lanes, some 400 integer
-// operations per 32 input bytes, so the kernel may be bound by the
-// integer ALUs rather than by device memory.  Speed is not this
-// kernel's goal yet; see PERF.md for both bounds and its time.
+// Bound on an H100: a doubling is at least 5 integer operations (the
+// final mask and XOR fold into one LOP3), and LOP3 folds the XOR terms
+// of one output pairwise.  Jerasure's RS(8,3) matrix needs 56 doublings
+// and 83 terms per column of k=8 lanes, 321 operations per 32 input
+// bytes, so it is bound by the integer ALUs; the ISA RS(8,3) matrix
+// needs 36 doublings and 36 terms, 198 operations, and is bound by
+// device memory.  chip_smoke.py computes both bounds for the matrix it
+// times.  Speed is not this kernel's goal yet; see PERF.md for its time.
 
 #include "lanes.cuh"
 

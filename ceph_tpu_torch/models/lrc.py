@@ -2,8 +2,9 @@
 
 Counterpart of ``ceph_tpu/models/lrc.py``.  The codec's device reaches
 every layer's inner codec, which the port's registry builds.  Encode
-takes numpy chunks or uint8 tensors on the codec's device; decode takes
-host chunks, as in ``ceph_tpu``.
+and decode take numpy chunks or uint8 tensors on the codec's device; a
+tensor stays on the device through every layer, and the result comes
+back in the kind the caller gave.
 
 Behavior mirror of reference:src/erasure-code/lrc/ErasureCodeLrc.{h,cc}:
 
@@ -33,7 +34,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from .base import ErasureCode
+from .base import ErasureCode, device_bytes
 from .interface import ErasureCodeValidationError
 from .registry import ErasureCodePlugin, PLUGIN_VERSION, instance
 
@@ -51,6 +52,13 @@ def _inner_engine(inner, op: str, host: bool):
     if host:
         return getattr(inner, f"{op}_host", getattr(inner, op))
     return getattr(inner, op)
+
+
+def _host_bytes(c) -> np.ndarray:
+    """A chunk as host uint8 memory (the host engines read numpy)."""
+    if isinstance(c, torch.Tensor):
+        c = c.cpu().numpy()
+    return np.asarray(c, dtype=np.uint8)
 
 
 class Layer:
@@ -317,9 +325,17 @@ class LrcErasureCode(ErasureCode):
         *, _host: bool = False,
     ) -> dict[int, np.ndarray]:
         want = list(want_to_read)
-        have: dict[int, np.ndarray] = {
-            i: np.asarray(c, dtype=np.uint8) for i, c in chunks.items()
-        }
+        # device-resident when any chunk is a tensor: every layer then
+        # decodes on the device and hands its tensors to the next
+        on_device = not _host and any(
+            isinstance(c, torch.Tensor) for c in chunks.values()
+        )
+        if on_device:
+            have = {i: device_bytes(c, self.device)[0] for i, c in chunks.items()}
+            stack = torch.stack
+        else:
+            have = {i: _host_bytes(c) for i, c in chunks.items()}
+            stack = np.stack
         missing_want = [i for i in want if i not in have]
         if not missing_want:
             return {i: have[i] for i in want}
@@ -343,28 +359,27 @@ class LrcErasureCode(ErasureCode):
                 if len(present_local) < inner.get_data_chunk_count():
                     continue
                 try:
-                    stacked = np.stack([have[layer.chunks[p]] for p in present_local])
+                    stacked = stack([have[layer.chunks[p]] for p in present_local])
                     rebuilt = _inner_engine(inner, "decode_chunks", _host)(
                         present_local, stacked, missing_local
                     )
                 except (IOError, ValueError):
                     continue
                 for j, pos in enumerate(missing_local):
-                    have[layer.chunks[pos]] = np.asarray(rebuilt[j])
+                    have[layer.chunks[pos]] = rebuilt[j]
                 progress = True
         still = [i for i in want if i not in have]
         if still:
             raise IOError(f"cannot decode chunks {still}")
         return {i: have[i] for i in want}
 
-    def decode_chunks(
-        self, present: Sequence[int], chunks: np.ndarray, missing: Sequence[int]
-    ) -> np.ndarray:
+    def decode_chunks(self, present: Sequence[int], chunks, missing: Sequence[int]):
         got = self.decode(
             list(missing),
             {r: chunks[i] for i, r in enumerate(present)},
         )
-        return np.stack([got[r] for r in missing])
+        stack = torch.stack if isinstance(chunks, torch.Tensor) else np.stack
+        return stack([got[r] for r in missing])
 
     def decode_chunks_host(
         self, present: Sequence[int], chunks: np.ndarray, missing: Sequence[int]

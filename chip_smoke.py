@@ -21,7 +21,8 @@ Phases, each fatal on any mismatch or exception:
    five BASELINE.json configurations through
    ``registry.instance().factory(...)``, 64 objects of 1 MiB per call
    (a 64 MiB data block), encode, erase, decode, bytes equal to the
-   originals and parity equal to ``encode_chunks_host``; then the port's
+   originals and parity equal to ``encode_chunks_host``, then encode and
+   decode again from tensors on the card; then the port's
    ``tools/ec_benchmark`` once for encode and once for decode.  Each
    kernel must have launched in this phase;
 5. time each kernel at its main-path shape (CUDA events, median of many
@@ -55,9 +56,11 @@ MEMORY_BYTES_PER_S = 3.35e12
 # SM on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
 # instruction throughput table); times SMs and the maximum SM clock
 INT32_OPS_PER_CLOCK_PER_SM = 64
-# integer operations of one GF doubling on a packed lane: shift, and,
-# and, shift, multiply, xor (ceph_tpu_torch/csrc/gf_matmul.cu gf_double)
-OPS_PER_DOUBLING = 6
+# integer operations of one GF doubling on a packed lane, at the least:
+# shift, and, multiply for the reduction term, then shift and one
+# three-input LOP3 for ((x << 1) & mask) ^ term
+# (ceph_tpu_torch/csrc/gf_matmul.cu gf_double)
+OPS_PER_DOUBLING = 5
 
 # plugin, profile, erasure sets to decode (chunk positions)
 CONFIGS = [
@@ -130,14 +133,22 @@ def nvidia_smi(fields: str) -> str:
 # -- phase 3: kernels against their plain versions ---------------------------
 
 
+def xor_ops(terms_per_output) -> int:
+    """Least integer operations that XOR t terms into each output: the
+    first term is a move into the zeroed accumulator, and one
+    three-input LOP3 folds two more, so t // 2 for each output."""
+    return sum(int(t) // 2 for t in terms_per_output)
+
+
 def gf_ops(matrix: np.ndarray, n4: int) -> int:
     """Integer operations of the doubling method for ``matrix`` over n4
-    lanes: each input row's chain up to its highest needed bit, plus one
-    XOR per set coefficient bit."""
+    lanes: each input row's chain up to its highest needed bit, plus the
+    folded XORs of each output's set coefficient bits."""
+    matrix = np.asarray(matrix, dtype=np.int64)
     doublings = sum(int(np.bitwise_or.reduce(col)).bit_length() - 1
-                    for col in np.asarray(matrix, dtype=np.int64).T if col.any())
-    terms = sum(bin(int(c)).count("1") for c in np.asarray(matrix).ravel())
-    return n4 * (OPS_PER_DOUBLING * doublings + terms)
+                    for col in matrix.T if col.any())
+    terms = [sum(bin(int(c)).count("1") for c in row) for row in matrix]
+    return n4 * (OPS_PER_DOUBLING * doublings + xor_ops(terms))
 
 
 def check_kernels(dev, rng) -> dict:
@@ -257,6 +268,23 @@ def run_config(plugin: str, profile: dict, erasure_sets, dev, rng) -> None:
             if not np.array_equal(out[e], full[e]):
                 raise AssertionError(f"{plugin} {profile}: chunk {e} differs after decode of {erased}")
         log(f"  {plugin} {profile} erased {erased}: decode ok ({t_dec:.3f} s host clock)")
+    # device-resident: tensors in, tensors out, on the card throughout
+    import torch
+
+    parity_t = codec.encode_chunks(torch.from_numpy(data).to(dev))
+    if not (isinstance(parity_t, torch.Tensor) and parity_t.device == dev
+            and np.array_equal(parity_t.cpu().numpy(), parity)):
+        raise AssertionError(f"{plugin} {profile}: device-resident encode differs")
+    for erased in erasure_sets:
+        present = [i for i in range(n) if i not in erased]
+        survivors = torch.from_numpy(np.stack([full[i] for i in present])).to(dev)
+        out = codec.decode_chunks(present, survivors, list(erased))
+        want = np.stack([full[e] for e in erased])
+        if not (isinstance(out, torch.Tensor) and out.device == dev
+                and np.array_equal(out.cpu().numpy(), want)):
+            raise AssertionError(
+                f"{plugin} {profile}: device-resident decode of {erased} differs")
+    log(f"  {plugin} {profile}: device-resident encode and decode ok")
 
 
 def run_main_path(dev, rng) -> None:
@@ -324,7 +352,7 @@ def time_kernels(dev, inputs: dict, launches: dict) -> list[dict]:
     plain_ms = time_cuda(lambda: gf_torch.bitmatrix_matmul_u32(bm, p_main), reps=5)
     K, n4 = p_main.shape
     M = bm.shape[0]
-    b_ms, b_by = bound((K + M) * n4 * 4, int(np.count_nonzero(bm)) * n4)
+    b_ms, b_by = bound((K + M) * n4 * 4, xor_ops(np.count_nonzero(bm, axis=1)) * n4)
     rows.append({
         "name": "bitmatrix_xor", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/bitmatrix_xor.cu",

@@ -110,6 +110,28 @@ def test_lrc_encode_keeps_tensors_on_the_device():
     assert np.array_equal(got.numpy(), codec.encode_chunks_host(data))
 
 
+@pytest.mark.parametrize("missing", [[0], [0, 1, 4]])
+def test_lrc_decode_keeps_tensors_on_the_device(missing):
+    codec = _port("lrc", {"k": "8", "m": "4", "l": "3"})
+    data = np.random.default_rng(14).integers(0, 256, size=(8, 1024), dtype=np.uint8)
+    parity = codec.encode_chunks(data)
+    mapping = codec.get_chunk_mapping()
+    coding = [i for i in range(codec.get_chunk_count()) if i not in mapping]
+    full = np.zeros((codec.get_chunk_count(), data.shape[1]), dtype=np.uint8)
+    full[mapping], full[coding] = data, parity
+    present = [i for i in range(codec.get_chunk_count()) if i not in missing]
+    want = codec.decode_chunks(present, full[present], missing)
+    assert np.array_equal(want, full[missing])
+    got = codec.decode_chunks(present, torch.from_numpy(full[present]), missing)
+    assert isinstance(got, torch.Tensor)
+    assert np.array_equal(got.numpy(), want)
+    # a dict of host and device chunks decodes on the device
+    mixed = {i: (torch.from_numpy(full[i]) if i % 2 else full[i]) for i in present}
+    out = codec.decode(missing, mixed)
+    assert all(isinstance(out[i], torch.Tensor) for i in missing)
+    assert np.array_equal(np.stack([out[i].numpy() for i in missing]), want)
+
+
 def test_host_engines_match_device_engines():
     rng = np.random.default_rng(12)
     for plugin, profile in (
