@@ -11,8 +11,9 @@ CUDA C++ under ``ceph_tpu_torch/csrc/``:
 
 Unlike the Pallas kernels, which unroll the matrix at trace time, the
 matrix is a runtime argument: each library is built once, and a matrix
-is packed into a small device tensor (:func:`gf_table`,
-:func:`bitmatrix_table`) that the caller keeps per matrix.
+is packed once (:func:`gf_table`: a coefficient plan for each launch,
+passed by value; :func:`bitmatrix_table`: a small device tensor) and kept
+by the caller per matrix.
 
 Each source is compiled by ``nvcc`` into a plain-C shared library under
 ``ceph_tpu_torch/build/``, at first use, named by a hash of the sources
@@ -37,6 +38,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,10 +54,18 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# output-tile widths each library was built for (see the .cu files)
-GF_TILES = (1, 2, 4, 8, 16)
+# gf_matmul's output tiles (csrc/gf_matmul.cu instantiates these): a
+# matrix's outputs split into tiles of 16 and one tile of the rest,
+# rounded up to the next of these
+GF_TILES = (1, 2, 3, 4, 6, 8, 16)
+# the plan of one launch, in step with PLAN_ROWS and PLAN_MASKS of
+# csrc/gf_matmul.cu: k chain lengths (uint8), then k*w output masks
+# (uint16); longer matrices split into chunks of input rows
+PLAN_ROWS = 256
+PLAN_MASKS = 8 * PLAN_ROWS
+PLAN_BYTES = PLAN_ROWS + 2 * PLAN_MASKS
 BITMATRIX_TILES = (8, 16, 32, 64)
-# a block's staged matrix must fit the default dynamic shared memory
+# a block's staged bit-matrix masks must fit the default dynamic shared memory
 SMEM_BYTES = 48 * 1024
 
 # launches per kernel since the last reset_launches()
@@ -63,8 +73,9 @@ launches = {name: 0 for name in SOURCES}
 
 _P, _I, _N = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    # in, out, table, w, k, m, mt, n4, stream
-    "gf_matmul": [_P, _P, _P, _I, _I, _I, _I, _N, _P],
+    # in (the chunk's first row), out (the tile's first row), plan (host
+    # bytes), w, k, rows, mt, n4, accumulate, stream
+    "gf_matmul": [_P, _P, _P, _I, _I, _I, _I, _N, _I, _P],
     # in, out, masks, K, M, mt, n4, stream
     "bitmatrix_xor": [_P, _P, _P, _I, _I, _I, _N, _P],
 }
@@ -156,6 +167,8 @@ def _lib(name: str) -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_launch")
             fn.restype = ctypes.c_int
             fn.argtypes = _ARGTYPES[name]
+            if name == "gf_matmul" and lib.gf_matmul_plan_bytes() != PLAN_BYTES:
+                raise KernelBuildError("gf_matmul.cu's Plan differs from PLAN_BYTES")
             _LIBS[name] = lib
     return _LIBS[name]
 
@@ -164,16 +177,42 @@ def _smallest_tile(rows: int, tiles: tuple[int, ...]) -> int:
     return next((t for t in tiles if t >= rows), tiles[-1])
 
 
-@dataclass(frozen=True)
-class GFTable:
-    """An [m, k] GF(2^w) matrix packed for ``gf_matmul``: coefficients
-    [tiles, k, mt] int32 on the device, zero past row m."""
+class GFLaunch(NamedTuple):
+    """One ``gf_matmul`` launch: outputs [out_row, out_row + m) as a tile
+    of mt, from inputs [in_row, in_row + k).  ``plan`` is its Plan,
+    PLAN_BYTES host bytes copied into the launch's parameters: ``nb[j]``
+    is the length of input row j's doubling chain that the tile needs (0:
+    the tile does not use row j), and bit i of ``masks[j*w + b]`` is bit b
+    of coefficient M[out_row + i, in_row + j].  With ``accumulate`` the
+    launch XORs its sums into the outputs, else stores them."""
 
-    coeffs: torch.Tensor
-    w: int
+    plan: np.ndarray
+    plan_ptr: int
+    nb: np.ndarray
+    masks: np.ndarray
+    in_row: int
+    out_row: int
     k: int
     m: int
     mt: int
+    accumulate: bool
+
+
+@dataclass(frozen=True)
+class GFTable:
+    """An [m, k] GF(2^w) matrix compiled for ``gf_matmul``: the launches
+    that compute it, one per output tile and chunk of input rows."""
+
+    launches: tuple[GFLaunch, ...]
+    device: torch.device
+    w: int
+    k: int
+    m: int
+
+    @property
+    def tiles(self) -> tuple[int, ...]:
+        """Each output tile's width, in order."""
+        return tuple(g.mt for g in self.launches if not g.accumulate)
 
 
 @dataclass(frozen=True)
@@ -195,14 +234,30 @@ def gf_table(matrix: np.ndarray, w: int, device: torch.device) -> GFTable:
         raise ValueError(f"gf_matmul is built for w=8 and w=16, got {w}")
     if matrix.size and (matrix.min() < 0 or matrix.max() >= 1 << w):
         raise ValueError(f"matrix entries must lie in GF(2^{w})")
-    mt = _smallest_tile(m, GF_TILES)
-    if k * mt * 4 > SMEM_BYTES:
-        raise ValueError(f"k={k} rows exceed the kernel's staged matrix")
-    tiles = -(-m // mt)
-    packed = np.zeros((tiles * mt, k), dtype=np.int32)
-    packed[:m] = matrix
-    packed = np.ascontiguousarray(packed.reshape(tiles, mt, k).transpose(0, 2, 1))
-    return GFTable(torch.from_numpy(packed).to(device), w, k, m, mt)
+    top, kc = GF_TILES[-1], min(PLAN_ROWS, PLAN_MASKS // w)
+    launches = []
+    for r0 in range(0, m, top):
+        rows = min(top, m - r0)
+        mt = _smallest_tile(rows, GF_TILES)
+        for j0 in range(0, max(k, 1), kc):
+            coef = matrix[r0:r0 + rows, j0:j0 + kc]                          # [i, j]
+            bits = (coef[..., None] >> np.arange(w)) & 1                    # [i, j, b]
+            masks = (bits << np.arange(rows)[:, None, None]).sum(axis=0)    # [j, b]
+            used = masks != 0
+            nb = np.where(used.any(axis=1), w - np.argmax(used[:, ::-1], axis=1), 0)
+            kr = coef.shape[1]
+            plan = np.zeros(PLAN_BYTES, dtype=np.uint8)
+            plan[:kr] = nb
+            plan[PLAN_ROWS:PLAN_ROWS + 2 * kr * w].view(np.uint16)[:] = masks.reshape(-1)
+            launches.append(GFLaunch(
+                plan, plan.ctypes.data, plan[:kr],
+                plan[PLAN_ROWS:PLAN_ROWS + 2 * kr * w].view(np.uint16),
+                j0, r0, kr, rows, mt, j0 > 0,
+            ))
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return GFTable(tuple(launches), device, w, k, m)
 
 
 def bitmatrix_table(bitmatrix: np.ndarray, device: torch.device) -> BitmatrixTable:
@@ -243,17 +298,20 @@ def _launched(name: str, rc: int) -> None:
 
 def gf_matmul(table: GFTable, d32: torch.Tensor) -> torch.Tensor:
     """data [k, N4] int32 lanes -> parity [m, N4] on the card."""
-    _check_lanes(d32, table.k, table.coeffs.device)
+    _check_lanes(d32, table.k, table.device)
     n4 = d32.shape[1]
     out = torch.empty((table.m, n4), dtype=torch.int32, device=d32.device)
     if n4 == 0 or table.m == 0:
         return out
     stream = torch.cuda.current_stream(d32.device).cuda_stream
-    rc = _lib("gf_matmul").gf_matmul_launch(
-        d32.data_ptr(), out.data_ptr(), table.coeffs.data_ptr(),
-        table.w, table.k, table.m, table.mt, n4, stream,
-    )
-    _launched("gf_matmul", rc)
+    launch = _lib("gf_matmul").gf_matmul_launch
+    row_bytes = 4 * n4
+    for g in table.launches:
+        rc = launch(
+            d32.data_ptr() + g.in_row * row_bytes, out.data_ptr() + g.out_row * row_bytes,
+            g.plan_ptr, table.w, g.k, g.m, g.mt, n4, g.accumulate, stream,
+        )
+        _launched("gf_matmul", rc)
     return out
 
 

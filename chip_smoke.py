@@ -15,8 +15,11 @@ Phases, each fatal on any mismatch or exception:
    compiler's register counts;
 3. hold each kernel bit-exact against its plain torch version on the
    card: at the main-path shapes, at ragged and misaligned lane counts,
-   at w=16, on a recovery matrix, on a matrix wider than one output
-   tile; and against the numpy oracle on a column slice;
+   at w=16, on recovery matrices, on matrices wider than one output
+   tile, on jerasure's RS(8,3) matrix, on a matrix with a zero column,
+   on k = 255, and on inputs longer than one launch's plan (k = 1000 at
+   w=8, k = 200 at w=16); and against the numpy oracle on a column
+   slice;
 4. the main path, with the launch counts set to 0 just before it: the
    five BASELINE.json configurations through
    ``registry.instance().factory(...)``, 64 objects of 1 MiB per call
@@ -26,7 +29,11 @@ Phases, each fatal on any mismatch or exception:
    ``tools/ec_benchmark`` once for encode and once for decode.  Each
    kernel must have launched in this phase;
 5. time each kernel at its main-path shape (CUDA events, median of many
-   launches) beside its plain version and its bound, and the end-to-end
+   launches, one launch between two events for the ``kernels`` line and
+   also batches of 20 back-to-back launches) beside its plain version and
+   its bound, ``gf_matmul`` also on jerasure's RS(8,3) matrix and on a
+   three-erasure ISA recovery matrix, each beside its own bound, and the
+   end-to-end
    RS(8,3) encode and decode GB/s through the registry, with host numpy
    in and out and device-resident.
 
@@ -57,10 +64,11 @@ MEMORY_BYTES_PER_S = 3.35e12
 # instruction throughput table); times SMs and the maximum SM clock
 INT32_OPS_PER_CLOCK_PER_SM = 64
 # integer operations of one GF doubling on a packed lane, at the least:
-# shift, and, multiply for the reduction term, then shift and one
-# three-input LOP3 for ((x << 1) & mask) ^ term
-# (ceph_tpu_torch/csrc/gf_matmul.cu gf_double)
-OPS_PER_DOUBLING = 5
+# a PRMT that copies each symbol's high bit over the symbol, an AND and a
+# shift for (x & low) << 1, and one three-input LOP3 that XORs in the
+# high mask ANDed with the polynomial (ceph_tpu_torch/csrc/gf_matmul.cu
+# gf_double)
+OPS_PER_DOUBLING = 4
 
 # plugin, profile, erasure sets to decode (chunk positions)
 CONFIGS = [
@@ -90,9 +98,12 @@ def max_abs_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max().item())
 
 
-def time_cuda(fn, reps: int, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` calls, each between
-    two CUDA events on the current stream."""
+def time_cuda(fn, reps: int, warmup: int = 3, batch: int = 1) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` samples, each ``batch``
+    back-to-back calls between two CUDA events on the current stream,
+    divided by ``batch``.  One call a sample (the ``kernels`` line) also
+    counts the host's launch gap; a batch keeps the card from waiting on
+    the host between calls."""
     import torch
 
     for _ in range(warmup):
@@ -103,10 +114,11 @@ def time_cuda(fn, reps: int, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -205,6 +217,19 @@ def check_kernels(dev, rng) -> dict:
     gf_case("recovery matrix", recovery, 8, lanes(k, n4_main))
     wide = rng.integers(0, 256, size=(20, 10))  # two output tiles
     gf_case("20x10 two tiles", wide, 8, lanes(10, 12345))
+    jerasure = mx.rs_vandermonde(k, m, 8)  # every chain 7 long
+    gf_case("jerasure RS(8,3) full shape", jerasure, 8, d_main)
+    gf_case("RS(8,3) m=3 ragged", rs, 8, lanes(k, 2 * 2048 * 132 + 1023))
+    zero_col = rs.copy()
+    zero_col[:, 5] = 0  # no output takes input row 5
+    gf_case("zero column", zero_col, 8, lanes(k, 300000))
+    k255 = rng.integers(0, 256, size=(1, 255))  # k + m = 256, many ring stages
+    gf_case("k=255", k255, 8, lanes(255, 40000))
+    gf_case("5x8 in a tile of 6", rng.integers(0, 256, size=(5, 8)), 8, lanes(8, 99999))
+    # input rows past one plan: launches that accumulate, vector and scalar stores
+    gf_case("16x1000 w=8", rng.integers(0, 256, size=(16, 1000)), 8, lanes(1000, 4096))
+    gf_case("4x200 w=16 ragged", rng.integers(0, 1 << 16, size=(4, 200)), 16,
+            lanes(200, 3001))
 
     # bit-matrix kernel: main path is cauchy_good k=10 m=4 w=8, ps=4096
     k, m, w = 10, 4, 8
@@ -231,8 +256,22 @@ def check_kernels(dev, rng) -> dict:
         bm_case(f"{mt_rows} outputs", bm[:mt_rows], lanes(k * w, 999))
     return {
         "gf": (rs, d_main, gf_err),
+        "gf_more": {"jerasure RS(8,3)": jerasure,
+                    "ISA RS(8,3) recovery of 3": recovery3(rs)},
         "bitmatrix": (bm, p_main, bm_err),
     }
+
+
+def recovery3(rs: np.ndarray) -> np.ndarray:
+    """The [3, 8] matrix that a decode of ISA RS(8,3) launches to rebuild
+    data chunks 1, 5 and 7 from the first 8 survivors, built as
+    ``MatrixErasureCode`` builds it."""
+    from ceph_tpu_torch.ops import matrices as mx
+
+    k = rs.shape[1]
+    lost = [1, 5, 7]
+    present = [c for c in range(k + rs.shape[0]) if c not in lost][:k]
+    return mx.decode_matrix(rs, k, 8, present)[lost]
 
 
 # -- phase 4: the main path ----------------------------------------------------
@@ -333,7 +372,10 @@ def time_kernels(dev, inputs: dict, launches: dict) -> list[dict]:
     rows = []
     rs, d_main, gf_err = inputs["gf"]
     table = gf_cuda.gf_table(rs, 8, dev)
-    ms = time_cuda(lambda: gf_cuda.gf_matmul(table, d_main), reps=50)
+    bt = gf_cuda.bitmatrix_table(inputs["bitmatrix"][0], dev)
+    kernel_calls = [lambda: gf_cuda.gf_matmul(table, d_main),
+                    lambda: gf_cuda.bitmatrix_xor(bt, inputs["bitmatrix"][1])]
+    ms = time_cuda(kernel_calls[0], reps=50)
     plain_ms = time_cuda(lambda: gf_torch.gf_matmul_u32(rs, d_main, 8), reps=5)
     k, n4 = d_main.shape
     m = rs.shape[0]
@@ -347,8 +389,7 @@ def time_kernels(dev, inputs: dict, launches: dict) -> list[dict]:
         "library_ms": None,
     })
     bm, p_main, bm_err = inputs["bitmatrix"]
-    bt = gf_cuda.bitmatrix_table(bm, dev)
-    ms = time_cuda(lambda: gf_cuda.bitmatrix_xor(bt, p_main), reps=50)
+    ms = time_cuda(kernel_calls[1], reps=50)
     plain_ms = time_cuda(lambda: gf_torch.bitmatrix_matmul_u32(bm, p_main), reps=5)
     K, n4 = p_main.shape
     M = bm.shape[0]
@@ -361,10 +402,20 @@ def time_kernels(dev, inputs: dict, launches: dict) -> list[dict]:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
     })
-    for r in rows:
-        log(f"  {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
-            f"{r['bound_ms'] / r['ms']:.1%} of bound)")
+    for r, fn in zip(rows, kernel_calls):
+        log(f"  {r['name']}: {r['ms']} ms one launch a sample, "
+            f"{time_cuda(fn, reps=50, batch=20)} ms in batches of 20 (bound "
+            f"{r['bound_ms']} ms by {r['bound_by']}, plain {r['plain_ms']} ms; one "
+            f"launch a sample is {r['bound_ms'] / r['ms']:.1%} of bound)")
+    k, n4 = d_main.shape
+    for what, matrix in inputs["gf_more"].items():
+        t = gf_cuda.gf_table(matrix, 8, dev)
+        ms = time_cuda(lambda: gf_cuda.gf_matmul(t, d_main), reps=50)
+        batched = time_cuda(lambda: gf_cuda.gf_matmul(t, d_main), reps=50, batch=20)
+        b_ms, b_by = bound((k + matrix.shape[0]) * n4 * 4, gf_ops(matrix, n4))
+        log(f"  gf_matmul {what} over [{k}, {n4}]: {ms} ms one launch a sample, "
+            f"{batched} ms in batches of 20 (bound {b_ms} ms by {b_by}, "
+            f"{b_ms / batched:.1%} of bound in batches)")
     return rows
 
 

@@ -4,8 +4,9 @@ Inputs come from ``np.random.default_rng(seed)``; every comparison is
 bit-exact (integer arithmetic, tolerance 0).  The plain torch versions
 are held against the Pallas kernels in interpret mode, against the XLA
 kernels and against the numpy oracle.  The CUDA kernels cannot run
-here: the host side they depend on (the packed matrix tables) is held
-against a numpy emulation of each kernel's indexing.  ``chip_smoke.py``
+here: the host side they depend on (the compiled GF plan, the packed
+bit-matrix masks) is held against a numpy emulation of each kernel's
+walk over it.  ``chip_smoke.py``
 holds the kernels themselves against these plain versions on the card.
 """
 
@@ -139,28 +140,37 @@ def test_byte_lane_views_round_trip():
 
 
 def _emulate_gf_kernel(table: gf_cuda.GFTable, d32: np.ndarray) -> np.ndarray:
-    """numpy emulation of gf_matmul.cu's indexing: per output tile, the
-    staged [k][MT] coefficients, chain to the tile's highest bit."""
-    coeffs = table.coeffs.numpy()
+    """numpy emulation of gf_matmul.cu, launch by launch: each walks its
+    input rows' chains up to their length nb (rows with nb = 0 skipped),
+    XORs each power into the accumulators its mask names (a tile of
+    exactly mt), and stores its m rows, or XORs them into the outputs
+    when it accumulates a later chunk of input rows."""
     x_all = d32.view(np.uint32)
     out = np.zeros((table.m, d32.shape[1]), dtype=np.uint32)
     mask_low, high_unit, poly = gf_torch._PACK[table.w]
-    for tile in range(coeffs.shape[0]):
-        acc = np.zeros((table.mt, d32.shape[1]), dtype=np.uint32)
-        for j in range(table.k):
-            c = coeffs[tile, j].astype(np.uint32)
-            x = x_all[j].copy()
+    for g in table.launches:
+        acc = np.zeros((g.mt, d32.shape[1]), dtype=np.uint32)
+        for j in range(g.k):
+            nb = int(g.nb[j])
+            if nb == 0:
+                continue
+            x = x_all[g.in_row + j].copy()
             for b in range(table.w):
                 if b:
-                    if (int(np.bitwise_or.reduce(c)) >> b) == 0:
+                    if b >= nb:
                         break
                     high = (x >> np.uint32(table.w - 1)) & np.uint32(high_unit)
                     x = ((x & np.uint32(mask_low)) << np.uint32(1)) ^ (high * np.uint32(poly))
-                for i in range(table.mt):
-                    if (int(c[i]) >> b) & 1:
+                mask = int(g.masks[j * table.w + b])
+                for i in range(g.mt):
+                    if (mask >> i) & 1:
                         acc[i] ^= x
-        rows = min(table.mt, table.m - tile * table.mt)
-        out[tile * table.mt: tile * table.mt + rows] = acc[:rows]
+        assert not acc[g.m:].any()  # no mask names an output past the tile's rows
+        rows = out[g.out_row:g.out_row + g.m]
+        if g.accumulate:
+            rows ^= acc[:g.m]
+        else:
+            rows[:] = acc[:g.m]
     return out
 
 
@@ -178,15 +188,66 @@ def _emulate_bitmatrix_kernel(table: gf_cuda.BitmatrixTable, p32: np.ndarray) ->
     return out
 
 
-@pytest.mark.parametrize("m,w,mt", [(1, 8, 1), (3, 8, 4), (16, 8, 16), (20, 8, 16), (2, 16, 2)])
-def test_gf_table_packing(m, w, mt):
-    """The packed coefficient table drives the kernel's arithmetic to
-    the plain version's bytes, for one tile and for two."""
-    rng = np.random.default_rng(m * w)
-    matrix = rng.integers(0, 1 << w, size=(m, 6))
+# m -> the output tiles gf_table must choose: tiles of 16 and the rest,
+# rounded up to a built tile
+TILES = {1: (1,), 2: (2,), 3: (3,), 4: (4,), 5: (6,), 16: (16,), 17: (16, 1), 20: (16, 4)}
+
+
+@pytest.mark.parametrize("m,w,k", [
+    (1, 8, 1), (3, 8, 4), (16, 8, 16), (20, 8, 16), (2, 16, 2),
+    (3, 8, 8), (17, 8, 9), (1, 8, 255), (3, 16, 7),
+    (5, 8, 6), (3, 8, 300), (4, 16, 200), (16, 8, 1000),
+])
+def test_gf_table_packing(m, w, k):
+    """The compiled plans drive the kernel's arithmetic to the plain
+    version's bytes: exact and rounded-up tiles, one tile and several,
+    k = 255 (the largest the plugins accept at w=8) in one launch, w=16,
+    and input rows past one plan split into chunks that accumulate."""
+    rng = np.random.default_rng(m * w + k)
+    matrix = rng.integers(0, 1 << w, size=(m, k))
     table = gf_cuda.gf_table(matrix, w, torch.device("cpu"))
-    assert table.mt == mt
-    d32 = gf_torch.bytes_to_u32(_bytes(6, 256, seed=m))
+    assert table.tiles == TILES[m]
+    chunk = min(gf_cuda.PLAN_ROWS, gf_cuda.PLAN_MASKS // w)
+    assert len(table.launches) == len(table.tiles) * -(-k // chunk)
+    assert all(g.plan.shape == (gf_cuda.PLAN_BYTES,) and g.k <= chunk
+               for g in table.launches)
+    d32 = gf_torch.bytes_to_u32(_bytes(k, 256, seed=m + k))
+    want = gf_torch.gf_matmul_u32(matrix, torch.from_numpy(d32), w).numpy()
+    assert np.array_equal(_emulate_gf_kernel(table, d32), want.view(np.uint32))
+
+
+def _zero_column_matrix() -> np.ndarray:
+    matrix = ref_mx.rs_vandermonde(6, 3, 8).copy()
+    matrix[:, 2] = 0  # no output takes input row 2
+    return matrix
+
+
+PLAN_CASES = {
+    # matrix, w, doubling chain of each input row (the plan's nb - 1)
+    "isa_rs_8_3": (lambda: ref_mx.isa_rs_vandermonde(8, 3), 8, [0, 2, 4, 6, 4, 6, 7, 7]),
+    "jerasure_rs_8_3": (lambda: ref_mx.rs_vandermonde(8, 3, 8), 8, [7] * 8),
+    "zero_column": (_zero_column_matrix, 8, None),
+    "recovery": (_recovery_matrix, 8, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_gf_plan_of_coding_matrices(case):
+    """The plugins' own matrices: chain lengths as the doubling method
+    needs them, a skipped row for a zero column, bytes equal to the plain
+    version."""
+    make, w, chains = PLAN_CASES[case]
+    matrix = make()
+    m, k = matrix.shape
+    table = gf_cuda.gf_table(matrix, w, torch.device("cpu"))
+    assert table.tiles == (m,) and len(table.launches) == 1
+    want_nb = [int(np.bitwise_or.reduce(col)).bit_length() for col in matrix.T]
+    assert table.launches[0].nb.tolist() == want_nb
+    if chains is not None:
+        assert [nb - 1 for nb in want_nb] == chains
+    if case == "zero_column":
+        assert table.launches[0].nb[2] == 0
+    d32 = gf_torch.bytes_to_u32(_bytes(k, 512, seed=k))
     want = gf_torch.gf_matmul_u32(matrix, torch.from_numpy(d32), w).numpy()
     assert np.array_equal(_emulate_gf_kernel(table, d32), want.view(np.uint32))
 
@@ -209,4 +270,4 @@ def test_tables_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         gf_cuda.gf_table(np.ones((2, 2)), 4, cpu)  # no w=4 build
     with pytest.raises(ValueError):
-        gf_cuda.gf_table(np.ones((16, 1000)), 8, cpu)  # staged matrix too large
+        gf_cuda.gf_table(np.array([[-1]]), 16, cpu)  # not a GF(2^16) element
