@@ -60,6 +60,8 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int CONSUMERS = 256;           // consumer threads a block
@@ -82,46 +84,6 @@ struct Plan {
 // Lanes per thread: wide tiles keep fewer so the accumulators fit.
 template <int MT>
 __host__ __device__ constexpr int lanes_per_thread() { return MT > 8 ? 4 : V_MAX; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
-      "[%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
-      "r"(smem_addr(bar)), "l"(policy) : "memory");
-}
 
 // 2*x for every symbol of a packed lane: PRMT in its sign mode copies
 // each symbol's high bit over the whole symbol, which selects the

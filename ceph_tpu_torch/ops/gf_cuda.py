@@ -11,9 +11,8 @@ CUDA C++ under ``ceph_tpu_torch/csrc/``:
 
 Unlike the Pallas kernels, which unroll the matrix at trace time, the
 matrix is a runtime argument: each library is built once, and a matrix
-is packed once (:func:`gf_table`: a coefficient plan for each launch,
-passed by value; :func:`bitmatrix_table`: a small device tensor) and kept
-by the caller per matrix.
+is packed once (:func:`gf_table`, :func:`bitmatrix_table`: a plan for
+each launch, passed by value) and kept by the caller per matrix.
 
 Each source is compiled by ``nvcc`` into a plain-C shared library under
 ``ceph_tpu_torch/build/``, at first use, named by a hash of the sources
@@ -48,7 +47,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
 SOURCES = {"gf_matmul": "gf_matmul.cu", "bitmatrix_xor": "bitmatrix_xor.cu"}
-HEADERS = ("lanes.cuh",)
+HEADERS = ("async_copy.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -64,9 +63,15 @@ GF_TILES = (1, 2, 3, 4, 6, 8, 16)
 PLAN_ROWS = 256
 PLAN_MASKS = 8 * PLAN_ROWS
 PLAN_BYTES = PLAN_ROWS + 2 * PLAN_MASKS
-BITMATRIX_TILES = (8, 16, 32, 64)
-# a block's staged bit-matrix masks must fit the default dynamic shared memory
-SMEM_BYTES = 48 * 1024
+# bitmatrix_xor's output tiles (csrc/bitmatrix_xor.cu instantiates these),
+# split as gf_matmul's are
+BITMATRIX_TILES = (8, 16, 32)
+# its plan, in step with PLAN_ROWS of csrc/bitmatrix_xor.cu: the indices
+# of the input rows the tile uses (uint32), then for each block of 32 of
+# them and each output a word of the rows it takes; more used rows split
+# into chunks
+BM_PLAN_ROWS = 512
+BM_PLAN_WORDS = 2 * BM_PLAN_ROWS
 
 # launches per kernel since the last reset_launches()
 launches = {name: 0 for name in SOURCES}
@@ -76,8 +81,9 @@ _ARGTYPES = {
     # in (the chunk's first row), out (the tile's first row), plan (host
     # bytes), w, k, rows, mt, n4, accumulate, stream
     "gf_matmul": [_P, _P, _P, _I, _I, _I, _I, _N, _I, _P],
-    # in, out, masks, K, M, mt, n4, stream
-    "bitmatrix_xor": [_P, _P, _P, _I, _I, _I, _N, _P],
+    # in (row 0), out (the tile's first row), plan (host bytes), used
+    # input rows, output rows, mt, n4, accumulate, stream
+    "bitmatrix_xor": [_P, _P, _P, _I, _I, _I, _N, _I, _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -169,6 +175,9 @@ def _lib(name: str) -> ctypes.CDLL:
             fn.argtypes = _ARGTYPES[name]
             if name == "gf_matmul" and lib.gf_matmul_plan_bytes() != PLAN_BYTES:
                 raise KernelBuildError("gf_matmul.cu's Plan differs from PLAN_BYTES")
+            if (name == "bitmatrix_xor"
+                    and lib.bitmatrix_xor_plan_bytes() != 4 * BM_PLAN_WORDS):
+                raise KernelBuildError("bitmatrix_xor.cu's Plan differs from BM_PLAN_ROWS")
             _LIBS[name] = lib
     return _LIBS[name]
 
@@ -215,16 +224,48 @@ class GFTable:
         return tuple(g.mt for g in self.launches if not g.accumulate)
 
 
+class BMLaunch(NamedTuple):
+    """One ``bitmatrix_xor`` launch: outputs [out_row, out_row + m) as a
+    tile of mt, from the n input rows ``rows`` (indices into all K, in
+    order).  ``plan`` is its Plan, BM_PLAN_WORDS uint32 host words copied
+    into the launch's parameters: ``rows``, then ``bits`` [n/32 rounded
+    up, 32], bit r of bits[b, i] set when output out_row + i takes input
+    row rows[32b + r].  With ``accumulate`` the launch XORs its sums into
+    the outputs, else stores them."""
+
+    plan: np.ndarray
+    plan_ptr: int
+    rows: np.ndarray
+    bits: np.ndarray
+    out_row: int
+    m: int
+    mt: int
+    accumulate: bool
+
+
 @dataclass(frozen=True)
 class BitmatrixTable:
-    """An [M, K] GF(2) matrix packed for ``bitmatrix_xor``: masks
-    [tiles, K] int64 on the device, bit i of masks[t, j] set when output
-    t*mt+i takes input row j."""
+    """An [M, K] GF(2) matrix compiled for ``bitmatrix_xor``: the
+    launches that compute it, one per output tile and chunk of the input
+    rows that tile uses."""
 
-    masks: torch.Tensor
+    launches: tuple[BMLaunch, ...]
+    device: torch.device
     K: int
     M: int
-    mt: int
+
+    @property
+    def tiles(self) -> tuple[int, ...]:
+        """Each output tile's width, in order."""
+        return tuple(g.mt for g in self.launches if not g.accumulate)
+
+
+def _table_device(device) -> torch.device:
+    """The device a table's launches run on, with its index."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def gf_table(matrix: np.ndarray, w: int, device: torch.device) -> GFTable:
@@ -254,26 +295,33 @@ def gf_table(matrix: np.ndarray, w: int, device: torch.device) -> GFTable:
                 plan[PLAN_ROWS:PLAN_ROWS + 2 * kr * w].view(np.uint16),
                 j0, r0, kr, rows, mt, j0 > 0,
             ))
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return GFTable(tuple(launches), device, w, k, m)
+    return GFTable(tuple(launches), _table_device(device), w, k, m)
 
 
 def bitmatrix_table(bitmatrix: np.ndarray, device: torch.device) -> BitmatrixTable:
     bits = np.asarray(bitmatrix) != 0
     M, K = bits.shape
-    mt = _smallest_tile(M, BITMATRIX_TILES)
-    if K * 8 > SMEM_BYTES:
-        raise ValueError(f"K={K} rows exceed the kernel's staged masks")
-    tiles = -(-M // mt)
-    padded = np.zeros((tiles * mt, K), dtype=np.uint64)
-    padded[:M] = bits
-    weights = np.left_shift(np.uint64(1), np.arange(mt, dtype=np.uint64))
-    masks = np.bitwise_or.reduce(
-        padded.reshape(tiles, mt, K) * weights[None, :, None], axis=1
-    )
-    return BitmatrixTable(torch.from_numpy(masks.view(np.int64)).to(device), K, M, mt)
+    top = BITMATRIX_TILES[-1]
+    shifts = np.arange(32, dtype=np.uint32)
+    launches = []
+    for r0 in range(0, M, top):
+        tile = bits[r0:r0 + top]                                             # [i, j]
+        used = np.flatnonzero(tile.any(axis=0))  # a row no output takes is never read
+        for c0 in range(0, max(used.size, 1), BM_PLAN_ROWS):
+            rows = used[c0:c0 + BM_PLAN_ROWS]
+            n = rows.size
+            took = np.zeros((top, -(-n // 32) * 32), dtype=np.uint32)        # [i, r]
+            took[:tile.shape[0], :n] = tile[:, rows]
+            words = (took.reshape(top, -1, 32) << shifts).sum(axis=2, dtype=np.uint32)
+            plan = np.zeros(BM_PLAN_WORDS, dtype=np.uint32)
+            plan[:n] = rows
+            plan[BM_PLAN_ROWS:BM_PLAN_ROWS + words.size] = words.T.reshape(-1)  # [b][i]
+            launches.append(BMLaunch(
+                plan, plan.ctypes.data, plan[:n],
+                plan[BM_PLAN_ROWS:BM_PLAN_ROWS + words.size].reshape(-1, 32),
+                r0, tile.shape[0], _smallest_tile(tile.shape[0], BITMATRIX_TILES), c0 > 0,
+            ))
+    return BitmatrixTable(tuple(launches), _table_device(device), K, M)
 
 
 def _check_lanes(x: torch.Tensor, rows: int, table_device: torch.device) -> None:
@@ -317,15 +365,18 @@ def gf_matmul(table: GFTable, d32: torch.Tensor) -> torch.Tensor:
 
 def bitmatrix_xor(table: BitmatrixTable, p32: torch.Tensor) -> torch.Tensor:
     """packets [K, N4] int32 lanes -> [M, N4] on the card."""
-    _check_lanes(p32, table.K, table.masks.device)
+    _check_lanes(p32, table.K, table.device)
     n4 = p32.shape[1]
     out = torch.empty((table.M, n4), dtype=torch.int32, device=p32.device)
     if n4 == 0 or table.M == 0:
         return out
     stream = torch.cuda.current_stream(p32.device).cuda_stream
-    rc = _lib("bitmatrix_xor").bitmatrix_xor_launch(
-        p32.data_ptr(), out.data_ptr(), table.masks.data_ptr(),
-        table.K, table.M, table.mt, n4, stream,
-    )
-    _launched("bitmatrix_xor", rc)
+    launch = _lib("bitmatrix_xor").bitmatrix_xor_launch
+    row_bytes = 4 * n4
+    for g in table.launches:
+        rc = launch(
+            p32.data_ptr(), out.data_ptr() + g.out_row * row_bytes, g.plan_ptr,
+            len(g.rows), g.m, g.mt, n4, g.accumulate, stream,
+        )
+        _launched("bitmatrix_xor", rc)
     return out

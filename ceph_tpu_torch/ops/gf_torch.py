@@ -170,8 +170,8 @@ class GFMatmul:
 
 class BitmatrixXor:
     """One [M, K] GF(2) bit-matrix bound to a device: packets [K, N4]
-    lanes -> [M, N4].  On CUDA the masks are packed and uploaded once,
-    here, and every call launches the ``bitmatrix_xor`` kernel."""
+    lanes -> [M, N4].  On CUDA the launch plans are packed once, here,
+    and every call launches the ``bitmatrix_xor`` kernel."""
 
     def __init__(self, bitmatrix: np.ndarray, device=None):
         self.bitmatrix = np.asarray(bitmatrix, dtype=np.uint8)

@@ -18,8 +18,10 @@ Phases, each fatal on any mismatch or exception:
    at w=16, on recovery matrices, on matrices wider than one output
    tile, on jerasure's RS(8,3) matrix, on a matrix with a zero column,
    on k = 255, and on inputs longer than one launch's plan (k = 1000 at
-   w=8, k = 200 at w=16); and against the numpy oracle on a column
-   slice;
+   w=8, k = 200 at w=16; K = 6144 bit-matrix rows); the bit-matrix
+   kernel also on rows misaligned by one lane, on the one-erasure
+   cauchy_good decode matrix (24 zero columns) and on M = 128 outputs;
+   and against the numpy oracle on a column slice;
 4. the main path, with the launch counts set to 0 just before it: the
    five BASELINE.json configurations through
    ``registry.instance().factory(...)``, 64 objects of 1 MiB per call
@@ -32,10 +34,12 @@ Phases, each fatal on any mismatch or exception:
    launches, one launch between two events for the ``kernels`` line and
    also batches of 20 back-to-back launches) beside its plain version and
    its bound, ``gf_matmul`` also on jerasure's RS(8,3) matrix and on a
-   three-erasure ISA recovery matrix, each beside its own bound, and the
-   end-to-end
-   RS(8,3) encode and decode GB/s through the registry, with host numpy
-   in and out and device-resident.
+   three-erasure ISA recovery matrix, ``bitmatrix_xor`` also on the
+   one- and four-erasure cauchy_good decode matrices, each beside its
+   own bound; the end-to-end RS(8,3) encode and decode GB/s through the
+   registry, with host numpy in and out and device-resident; and the
+   device-resident cauchy_good k=10 m=4 encode and decode beside the two
+   packet-layout copies they make.
 
 Output: the card line, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -163,6 +167,11 @@ def gf_ops(matrix: np.ndarray, n4: int) -> int:
     return n4 * (OPS_PER_DOUBLING * doublings + xor_ops(terms))
 
 
+def used_rows(matrix: np.ndarray) -> int:
+    """Input rows the matrix reads: a zero column's row is never read."""
+    return int(np.count_nonzero(np.asarray(matrix).any(axis=0)))
+
+
 def check_kernels(dev, rng) -> dict:
     """Every kernel bit-exact against its plain version on the card;
     returns the main-path inputs and errors for the timing phase."""
@@ -171,6 +180,7 @@ def check_kernels(dev, rng) -> dict:
     from ceph_tpu_torch.ops import gf_cuda, gf_torch, matrices as mx
     from ceph_tpu_torch.ops.gf import gf
     from ceph_tpu_torch.models.matrix_codec import _gf2_invert
+    from ceph_tpu_torch.tools.gf_matmul_sweep import cauchy_decode_bitmatrix
 
     def lanes(rows: int, n4: int):
         return torch.from_numpy(
@@ -254,11 +264,25 @@ def check_kernels(dev, rng) -> dict:
     bm_case("80x40 two tiles", wide_bm, lanes(40, 5000))
     for mt_rows in (5, 12, 30):  # the narrower tiles
         bm_case(f"{mt_rows} outputs", bm[:mt_rows], lanes(k * w, 999))
+    # rows misaligned by one lane: the producer's plain loads, not bulk copies
+    buf = lanes(1, k * w * 8192 + 1)
+    bm_case("misaligned rows", bm, buf[0, 1:].view(k * w, 8192))
+    decode1 = cauchy_decode_bitmatrix([3])  # [8, 104], 24 zero columns
+    p_decode1 = lanes(decode1.shape[1], n4_bm)
+    bm_case("one-erasure decode [8, 104]", decode1, p_decode1)
+    decode4 = cauchy_decode_bitmatrix([0, 4, 11, 13])  # [32, 80]
+    bm_case("four-erasure decode [32, 80]", decode4, p_main)
+    k6144 = (rng.random((8, 6144)) < 0.4).astype(np.uint8)  # chunks of used rows
+    bm_case("K=6144", k6144, lanes(6144, 1000))
+    m128 = (rng.random((128, 80)) < 0.35).astype(np.uint8)  # four output tiles
+    bm_case("M=128", m128, lanes(80, 4099))
     return {
         "gf": (rs, d_main, gf_err),
         "gf_more": {"jerasure RS(8,3)": jerasure,
                     "ISA RS(8,3) recovery of 3": recovery3(rs)},
         "bitmatrix": (bm, p_main, bm_err),
+        "bitmatrix_more": {"cauchy_good decode of 1 erasure": (decode1, p_decode1),
+                           "cauchy_good decode of 4 erasures": (decode4, p_main)},
     }
 
 
@@ -379,7 +403,7 @@ def time_kernels(dev, inputs: dict, launches: dict) -> list[dict]:
     plain_ms = time_cuda(lambda: gf_torch.gf_matmul_u32(rs, d_main, 8), reps=5)
     k, n4 = d_main.shape
     m = rs.shape[0]
-    b_ms, b_by = bound((k + m) * n4 * 4, gf_ops(rs, n4))
+    b_ms, b_by = bound((used_rows(rs) + m) * n4 * 4, gf_ops(rs, n4))
     rows.append({
         "name": "gf_matmul", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
@@ -393,7 +417,8 @@ def time_kernels(dev, inputs: dict, launches: dict) -> list[dict]:
     plain_ms = time_cuda(lambda: gf_torch.bitmatrix_matmul_u32(bm, p_main), reps=5)
     K, n4 = p_main.shape
     M = bm.shape[0]
-    b_ms, b_by = bound((K + M) * n4 * 4, xor_ops(np.count_nonzero(bm, axis=1)) * n4)
+    b_ms, b_by = bound((used_rows(bm) + M) * n4 * 4,
+                       xor_ops(np.count_nonzero(bm, axis=1)) * n4)
     rows.append({
         "name": "bitmatrix_xor", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/bitmatrix_xor.cu",
@@ -412,10 +437,20 @@ def time_kernels(dev, inputs: dict, launches: dict) -> list[dict]:
         t = gf_cuda.gf_table(matrix, 8, dev)
         ms = time_cuda(lambda: gf_cuda.gf_matmul(t, d_main), reps=50)
         batched = time_cuda(lambda: gf_cuda.gf_matmul(t, d_main), reps=50, batch=20)
-        b_ms, b_by = bound((k + matrix.shape[0]) * n4 * 4, gf_ops(matrix, n4))
+        b_ms, b_by = bound((used_rows(matrix) + matrix.shape[0]) * n4 * 4,
+                           gf_ops(matrix, n4))
         log(f"  gf_matmul {what} over [{k}, {n4}]: {ms} ms one launch a sample, "
             f"{batched} ms in batches of 20 (bound {b_ms} ms by {b_by}, "
             f"{b_ms / batched:.1%} of bound in batches)")
+    for what, (matrix, p32) in inputs["bitmatrix_more"].items():
+        t = gf_cuda.bitmatrix_table(matrix, dev)
+        ms = time_cuda(lambda: gf_cuda.bitmatrix_xor(t, p32), reps=50)
+        batched = time_cuda(lambda: gf_cuda.bitmatrix_xor(t, p32), reps=50, batch=20)
+        b_ms, b_by = bound((used_rows(matrix) + matrix.shape[0]) * p32.shape[1] * 4,
+                           xor_ops(np.count_nonzero(matrix, axis=1)) * p32.shape[1])
+        log(f"  bitmatrix_xor {what} {list(matrix.shape)} over {list(p32.shape)}: {ms} ms "
+            f"one launch a sample, {batched} ms in batches of 20 (bound {b_ms} ms by "
+            f"{b_by}, {b_ms / batched:.1%} of bound in batches)")
     return rows
 
 
@@ -456,6 +491,49 @@ def time_end_to_end(dev, rng) -> dict:
         log(f"  isa RS(8,3) {key}: {gbps[key]:.3f} GB/s ({s * 1e3:.3f} ms for "
             f"{OBJECTS} x 1 MiB objects, host clock)")
     return gbps
+
+
+def time_packet_layout(dev, rng) -> None:
+    """Device-resident jerasure cauchy_good k=10 m=4 encode and decode
+    (one erasure) on the host clock, beside the two packet-layout copies
+    of ``BitmatrixErasureCode`` ([n, C] chunks <-> [n*w, B*ps] packet
+    rows) that they make around the kernel, timed alone."""
+    import torch
+
+    from ceph_tpu_torch.models import registry
+
+    codec = registry.instance().factory(
+        "jerasure", {"technique": "cauchy_good", "k": "10", "m": "4", "packetsize": "4096"})
+    k, n = codec.get_data_chunk_count(), codec.get_chunk_count()
+    C = codec.get_chunk_size(OBJECT_SIZE)
+    data_t = torch.from_numpy(
+        rng.integers(0, 256, size=(k, OBJECTS * C), dtype=np.uint8)).to(dev)
+    parity_t = codec.encode_chunks(data_t)
+    chunks_t = torch.cat([data_t, parity_t])
+    present, missing = [c for c in range(n) if c != 3], [3]
+    survivors_t = chunks_t[present].contiguous()
+    packets_out = codec._to_packets(parity_t)  # [m*w, B*ps], as the kernel gives it
+
+    def dev_encode():
+        codec.encode_chunks(data_t)
+        torch.cuda.synchronize()
+
+    def dev_decode():
+        codec.decode_chunks(present, survivors_t, missing)
+        torch.cuda.synchronize()
+
+    encode_s = time_wall(dev_encode, 20)
+    decode_s = time_wall(dev_decode, 20)
+    to_ms = time_cuda(lambda: codec._to_packets(data_t), reps=20, batch=20)
+    from_ms = time_cuda(lambda: codec._from_packets(packets_out, codec.m), reps=20, batch=20)
+    nbytes = OBJECTS * OBJECT_SIZE
+    log(f"  cauchy_good(10,4) encode_device_resident: {encode_s * 1e3:.4f} ms host clock "
+        f"({nbytes / encode_s / 1e9:.3f} GB/s of object data); decode of 1 erasure "
+        f"{decode_s * 1e3:.4f} ms ({nbytes / decode_s / 1e9:.3f} GB/s)")
+    log(f"  packet layout copies alone, batches of 20: _to_packets of the data "
+        f"{list(data_t.shape)} {to_ms} ms, _from_packets of the parity "
+        f"{list(packets_out.shape)} {from_ms} ms; together "
+        f"{(to_ms + from_ms) / (encode_s * 1e3):.1%} of the device-resident encode")
 
 
 def main() -> int:
@@ -511,6 +589,7 @@ def main() -> int:
     log("== 5. timing")
     rows = time_kernels(dev, inputs, launches)
     time_end_to_end(dev, rng)
+    time_packet_layout(dev, rng)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

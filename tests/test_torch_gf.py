@@ -26,10 +26,15 @@ from ceph_tpu.ops.gf_pallas import (
     make_bitmatrix_matmul_pallas,
     make_gf_matmul_pallas,
 )
-from ceph_tpu.models.jerasure import liberation_bitmatrix
+from ceph_tpu.models.jerasure import (
+    blaum_roth_bitmatrix,
+    liber8tion_bitmatrix,
+    liberation_bitmatrix,
+)
 
 from ceph_tpu_torch.ops import gf_cuda, gf_torch
 from ceph_tpu_torch.ops.gf import gf
+from ceph_tpu_torch.tools.gf_matmul_sweep import cauchy_decode_bitmatrix
 
 
 def _bytes(rows: int, n: int, seed: int) -> np.ndarray:
@@ -174,18 +179,56 @@ def _emulate_gf_kernel(table: gf_cuda.GFTable, d32: np.ndarray) -> np.ndarray:
     return out
 
 
+# output groups a tile's outputs split into, as GROUPS of csrc/bitmatrix_xor.cu
+BM_GROUPS = 8
+
+
 def _emulate_bitmatrix_kernel(table: gf_cuda.BitmatrixTable, p32: np.ndarray) -> np.ndarray:
-    masks = table.masks.numpy().view(np.uint64)
+    """numpy emulation of bitmatrix_xor.cu, launch by launch: each of its
+    BM_GROUPS output groups (mt / BM_GROUPS outputs each) walks the used
+    rows 32 at a time, and each output XORs in the rows its word of the
+    plan names; the launch stores its m rows, or XORs them into the
+    outputs when it accumulates a later chunk of used rows."""
     x_all = p32.view(np.uint32)
     out = np.zeros((table.M, p32.shape[1]), dtype=np.uint32)
-    for tile in range(masks.shape[0]):
-        for j in range(table.K):
-            mask = int(masks[tile, j])
-            for i in range(table.mt):
-                row = tile * table.mt + i
-                if (mask >> i) & 1 and row < table.M:
-                    out[row] ^= x_all[j]
+    for g in table.launches:
+        og = g.mt // BM_GROUPS
+        acc = np.zeros((g.mt, p32.shape[1]), dtype=np.uint32)
+        for b, words in enumerate(g.bits.tolist()):
+            for grp in range(BM_GROUPS):
+                for i in range(grp * og, grp * og + og):
+                    for r in range(32):
+                        if (words[i] >> r) & 1:
+                            acc[i] ^= x_all[g.rows[32 * b + r]]
+        assert not acc[g.m:].any()  # no word names an output past the tile's rows
+        rows = out[g.out_row:g.out_row + g.m]
+        if g.accumulate:
+            rows ^= acc[:g.m]
+        else:
+            rows[:] = acc[:g.m]
     return out
+
+
+def _check_bitmatrix_plans(table: gf_cuda.BitmatrixTable, bm: np.ndarray) -> None:
+    """Every launch's plan names, in order and within its capacity, the
+    input rows its tile uses and no other, and for each block of 32 of
+    them each output's word of the rows it takes."""
+    bits = np.asarray(bm) != 0
+    top = gf_cuda.BITMATRIX_TILES[-1]
+    for g in table.launches:
+        n = len(g.rows)
+        assert n <= gf_cuda.BM_PLAN_ROWS and g.plan.shape == (gf_cuda.BM_PLAN_WORDS,)
+        assert np.array_equal(g.plan[:n], g.rows) and g.bits.shape == (-(-n // 32), 32)
+        assert np.all(np.diff(g.rows.astype(np.int64)) > 0)
+        tile = bits[g.out_row:g.out_row + g.m]
+        for r, j in enumerate(g.rows.tolist()):
+            took = [(int(g.bits[r // 32, i]) >> (r % 32)) & 1 for i in range(32)]
+            assert took == [int(tile[i, j]) if i < g.m else 0 for i in range(32)]
+        assert not g.plan[gf_cuda.BM_PLAN_ROWS + g.bits.size:].any()
+    for r0 in range(0, bits.shape[0], top):
+        tile_rows = [g.rows for g in table.launches if g.out_row == r0]
+        used = np.flatnonzero(bits[r0:r0 + top].any(axis=0))
+        assert np.array_equal(np.concatenate(tile_rows), used)
 
 
 # m -> the output tiles gf_table must choose: tiles of 16 and the rest,
@@ -252,15 +295,78 @@ def test_gf_plan_of_coding_matrices(case):
     assert np.array_equal(_emulate_gf_kernel(table, d32), want.view(np.uint32))
 
 
-@pytest.mark.parametrize("M,mt", [(5, 8), (16, 16), (32, 32), (64, 64), (80, 64)])
-def test_bitmatrix_table_packing(M, mt):
-    rng = np.random.default_rng(M)
-    bm = (rng.random((M, 24)) < 0.4).astype(np.uint8)
+# M -> the output tiles bitmatrix_table must choose: tiles of 32 and the
+# rest, rounded up to a built tile
+BM_TILES = {3: (8,), 5: (8,), 8: (8,), 16: (16,), 32: (32,), 64: (32, 32),
+            80: (32, 32, 16), 128: (32, 32, 32, 32)}
+
+
+@pytest.mark.parametrize("M,K", [
+    (5, 8), (16, 16), (32, 32), (64, 64), (80, 64),
+    (3, 24), (128, 40), (8, 1200), (8, 6144),
+])
+def test_bitmatrix_table_packing(M, K):
+    """The packed plans drive the kernel's walk to the plain version's
+    bytes: exact and rounded-up tiles, one tile and several (M = 128:
+    four tiles, the input read by each), used rows past one plan split
+    into launches that accumulate (K = 1200), and K = 6144, the most
+    an earlier kernel, which staged the masks in shared memory, took."""
+    rng = np.random.default_rng(M * 7 + K)
+    bm = (rng.random((M, K)) < 0.4).astype(np.uint8)
     table = gf_cuda.bitmatrix_table(bm, torch.device("cpu"))
-    assert table.mt == mt and table.masks.shape == (-(-M // mt), 24)
-    p32 = gf_torch.bytes_to_u32(_bytes(24, 128, seed=M))
+    assert table.tiles == BM_TILES[M]
+    _check_bitmatrix_plans(table, bm)
+    used = [np.count_nonzero(bm[r0:r0 + 32].any(axis=0)) for r0 in range(0, M, 32)]
+    assert len(table.launches) == sum(-(-u // gf_cuda.BM_PLAN_ROWS) for u in used)
+    p32 = gf_torch.bytes_to_u32(_bytes(K, 64, seed=M + K))
     want = gf_torch.bitmatrix_matmul_u32(bm, torch.from_numpy(p32)).numpy()
     assert np.array_equal(_emulate_bitmatrix_kernel(table, p32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("missing", [(3,), (0, 4, 11, 13)])
+def test_bitmatrix_plan_of_recovery_matrices(missing):
+    """A decode's recovery bit-matrix: one erasure widens to all 13
+    survivors ([8, 104], 24 zero columns, none of them in the plan: those
+    rows cost no bytes); four erasures use every column."""
+    bm = cauchy_decode_bitmatrix(missing)
+    table = gf_cuda.bitmatrix_table(bm, torch.device("cpu"))
+    _check_bitmatrix_plans(table, bm)
+    planned = np.concatenate([g.rows for g in table.launches])
+    zero = np.flatnonzero(~bm.any(axis=0))
+    assert bm.shape == (8 * len(missing), 8 * (14 - len(missing)))
+    assert len(zero) == (24 if len(missing) == 1 else 0)
+    assert planned.size == bm.shape[1] - len(zero) and not np.isin(zero, planned).any()
+    p32 = gf_torch.bytes_to_u32(_bytes(bm.shape[1], 256, seed=len(missing)))
+    want = gf_torch.bitmatrix_matmul_u32(bm, torch.from_numpy(p32)).numpy()
+    assert np.array_equal(_emulate_bitmatrix_kernel(table, p32), want.view(np.uint32))
+
+
+def _plugin_bitmatrix(technique: str) -> np.ndarray:
+    if technique == "cauchy_good":
+        return ref_gf(8).matrix_to_bitmatrix(ref_mx.cauchy_good(10, 4, 8))
+    if technique == "liberation":
+        return liberation_bitmatrix(7, 7)
+    if technique == "blaum_roth":
+        return blaum_roth_bitmatrix(6, 6)
+    return liber8tion_bitmatrix(8)
+
+
+@pytest.mark.parametrize("technique", ["cauchy_good", "liberation", "blaum_roth",
+                                       "liber8tion"])
+def test_plugin_bitmatrices_through_the_kernel_plan(technique):
+    """Each jerasure bit-matrix technique's matrix: the plain version
+    equals the Pallas kernel (interpret mode), and the kernel's walk over
+    its packed plan equals the plain version."""
+    bm = _plugin_bitmatrix(technique)
+    packets = _bytes(bm.shape[1], BLOCK * 4, seed=11)
+    p32 = ref_bytes_to_u32(packets)
+    pallas = np.asarray(make_bitmatrix_matmul_pallas(bm, interpret=True)(p32))
+    plain = gf_torch.bitmatrix_matmul_u32(bm, torch.from_numpy(np.asarray(p32))).numpy()
+    assert np.array_equal(plain.view(np.uint32), pallas.view(np.uint32))
+    table = gf_cuda.bitmatrix_table(bm, torch.device("cpu"))
+    _check_bitmatrix_plans(table, bm)
+    got = _emulate_bitmatrix_kernel(table, np.asarray(p32).view(np.int32))
+    assert np.array_equal(got, plain.view(np.uint32))
 
 
 def test_tables_reject_what_the_kernels_do_not_take():
