@@ -10,6 +10,15 @@ is easy to find:
   (``gf_cuda`` + ``csrc/``);
 - ``models``: the codec interface, registry and plugins (jerasure, isa,
   lrc, shec, example);
+- ``osd``: the OSD's EC engine: stripe math (``ec_util``), write plans
+  (``ec_transaction``), the cross-op microbatch dispatcher
+  (``ec_dispatch``), its engine supervisor (``ec_failover``) and the
+  ``ec`` perf family (``ec_perf``);
+- ``common``: perf counters and the trace context the dispatcher reads;
+- ``utils``: byte buffers and copy accounting, and the native host
+  engine (``csrc/host/ec_cpu.cc``, built with ``g++``);
+- ``ops.profiler`` / ``ops.device_trace``: the kernel profiler and the
+  launch flight recorder;
 - ``tools``: ``ec_benchmark`` and ``ec_non_regression``.
 
 It imports torch, numpy and the standard library, never jax and never

@@ -16,17 +16,26 @@ engines shared by the jerasure/isa/lrc/shec plugins:
 
 Every codec is bound to one device.  Its region engine (``ops.gf_torch``)
 launches the Hopper kernel on CUDA and runs the plain torch version on
-the CPU; encode and decode both stay on the codec's device, with no
-host engine in between.  Decode matrices are built on the host by
-inverting the survivor submatrix and are cached, with their engines,
+the CPU; encode and decode both stay on the codec's device.  The one
+exception is the reference's native C lane: a w=8 matrix codec on the
+CPU decodes host arrays through the port's native engine
+(``utils.native``) when it loads.  Decode matrices are built on the host
+by inverting the survivor submatrix and are cached, with their engines,
 per erasure signature, mirroring the ISA-L table cache
 (reference:src/erasure-code/isa/ErasureCodeIsaTableCache.cc:278-331).
-The ``*_host`` methods compute the same bytes with the numpy oracle and
-never touch a device.
+The ``*_host`` methods compute the same bytes on the host (the native
+engine, else the numpy oracle) and never touch a device: they are the
+failover replay engine of ``osd.ec_failover``.
+
+Every device entry reports into the kernel profiler (``ops.profiler``)
+under the reference's engine names: ``gf_encode``, ``ec_shards``,
+``gf_decode``, ``gf_decode_native``, ``bitmatrix_encode``,
+``bitmatrix_decode``.
 """
 
 from __future__ import annotations
 
+import subprocess
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -36,6 +45,8 @@ from ..ops import matrices as mx
 from ..ops.gf import gf
 from ..ops.gf_cuda import KernelBuildError, KernelLaunchError
 from ..ops.gf_torch import BitmatrixXor, GFMatmul, bytes_to_u32, u32_to_bytes
+from ..ops.profiler import profiler
+from ..utils import native
 from .base import ErasureCode, device_bytes, like_input
 from .interface import ErasureCodeValidationError
 
@@ -63,6 +74,12 @@ def _device_lanes(x, device: torch.device) -> tuple[torch.Tensor, bool]:
     return torch.from_numpy(arr.view(np.int32)).to(device), True
 
 
+def _mkey(matrix: np.ndarray) -> tuple:
+    """A matrix as a hashable key (the profiler's call signature, and
+    the reference's jit-cache key)."""
+    return tuple(tuple(int(v) for v in row) for row in np.asarray(matrix))
+
+
 def _check_survivors(present: tuple[int, ...], k: int) -> None:
     if len(present) < k:
         raise IOError(f"cannot decode: {len(present)} chunks available, need {k}")
@@ -82,15 +99,22 @@ _DATA_ERRORS = (
     OSError, ErasureCodeValidationError, AssertionError,
 )
 
+class EngineFault(RuntimeError):
+    """Fabricated device-lost error for the dispatcher's
+    ``inject_engine_failure`` hook (classified fatal, like a real CUDA
+    error)."""
+
+
 # device-side faults whatever else they inherit from: a CUDA error
-# surfaced by torch, a device allocation failure, and this package's
-# own kernel build and launch failures
+# surfaced by torch, a device allocation failure, this package's own
+# kernel build and launch failures, and the injected fault
 _FATAL_TYPES = tuple(
     t for t in (
         getattr(torch, "AcceleratorError", None),
         torch.OutOfMemoryError,
         KernelLaunchError,
         KernelBuildError,
+        EngineFault,
     ) if t is not None
 )
 
@@ -126,8 +150,11 @@ class MatrixErasureCode(ErasureCode):
                 f"matrix shape {self.matrix.shape} != ({m}, {k})"
             )
         self._engine = GFMatmul(self.matrix, w, self.device)
-        # (present, missing) -> (recovery matrix, its engine)
-        self._decode_cache: dict[tuple, tuple[np.ndarray, GFMatmul]] = {}
+        # profiler key, built ONCE: the encode hot path must not
+        # re-serialize the matrix per op (it is immutable from here)
+        self._mkey = _mkey(self.matrix)
+        # (present, missing) -> (recovery matrix, its engine, its key)
+        self._decode_cache: dict[tuple, tuple[np.ndarray, GFMatmul, tuple]] = {}
 
     def init(self, profile: Mapping[str, str]) -> None:
         self._profile = dict(profile)
@@ -135,30 +162,59 @@ class MatrixErasureCode(ErasureCode):
     # -- encode -------------------------------------------------------------
 
     def encode_chunks(self, data_chunks):
-        x, host = device_bytes(data_chunks, self.device)
-        return like_input(_apply(self._engine, x), host)
+        def run(data_chunks):
+            x, host = device_bytes(data_chunks, self.device)
+            return like_input(_apply(self._engine, x), host)
+
+        shape = _shape(data_chunks)
+        return profiler().call_jitted(
+            "gf_encode", (self._mkey, shape), run, (data_chunks,),
+            nbytes=_nbytes(data_chunks), shape=shape,
+        )
 
     def encode_chunks_u32(self, d32):
         """Lane path ([k, N4] 32-bit lanes -> [m, N4]), for callers that
         keep the whole pipeline in lanes."""
-        x, host = _device_lanes(d32, self.device)
-        out = like_input(self._engine(x), host)
-        return out.view(np.uint32) if host else out
+        def run(d32):
+            x, host = _device_lanes(d32, self.device)
+            out = like_input(self._engine(x), host)
+            return out.view(np.uint32) if host else out
+
+        shape = _shape(d32)
+        return profiler().call_jitted(
+            "gf_encode", (self._mkey, shape), run, (d32,),
+            nbytes=_nbytes(d32), shape=shape,
+        )
 
     def encode_shards_u32(self, d3):
         """The OSD stack's entry: [S, k, C4] lanes in stripe order ->
         [k+m, S*C4] shard rows (data rows, then parity): a permute, the
         region engine and a concatenation."""
-        x, host = _device_lanes(d3, self.device)
-        S, k, C4 = x.shape
-        flat = x.permute(1, 0, 2).reshape(k, S * C4)
-        out = like_input(torch.cat([flat, self._engine(flat)], dim=0), host)
-        return out.view(np.uint32) if host else out
+        def run(d3):
+            x, host = _device_lanes(d3, self.device)
+            S, k, C4 = x.shape
+            flat = x.permute(1, 0, 2).reshape(k, S * C4)
+            out = like_input(torch.cat([flat, self._engine(flat)], dim=0), host)
+            return out.view(np.uint32) if host else out
+
+        shape = _shape(d3)
+        return profiler().call_jitted(
+            "ec_shards", (self._mkey, shape), run, (d3,),
+            nbytes=_nbytes(d3), shape=shape,
+        )
 
     # -- host engine ----------------------------------------------------------
 
     def _host_matmul(self, matrix: np.ndarray, arr: np.ndarray) -> np.ndarray:
-        """GF matmul on the numpy oracle, no device involved."""
+        """GF matmul on the host, no device involved: the native engine
+        when it loads and the shape suits it (bit-identical to the
+        tables, pinned by tests), else the numpy oracle every engine is
+        pinned against."""
+        if self.w == 8 and arr.shape[-1] % 8 == 0 and native.fits(*matrix.shape):
+            try:
+                return native.encode(matrix, arr)
+            except (OSError, subprocess.CalledProcessError):
+                pass  # library unbuildable here: the numpy oracle below
         G = gf(self.w)
         if self.w == 16:
             # bytes are pairs of native-endian GF(2^16) elements on the
@@ -181,7 +237,7 @@ class MatrixErasureCode(ErasureCode):
         :meth:`decode_chunks`, applied without a device launch."""
         present, missing = tuple(present), tuple(missing)
         _check_survivors(present, self.k)
-        RM, _ = self._recovery_matrix(present, missing)
+        RM, _, _ = self._recovery_matrix(present, missing)
         arr = np.ascontiguousarray(np.asarray(chunks, dtype=np.uint8))
         return self._host_matmul(RM, arr)
 
@@ -189,10 +245,10 @@ class MatrixErasureCode(ErasureCode):
 
     def _recovery_matrix(
         self, present: tuple[int, ...], missing: tuple[int, ...]
-    ) -> tuple[np.ndarray, GFMatmul]:
+    ) -> tuple[np.ndarray, GFMatmul, tuple]:
         """([len(missing), len(present)] GF matrix rebuilding the missing
-        rows, its engine on this codec's device), cached per erasure
-        signature."""
+        rows, its engine on this codec's device, its profiler key),
+        cached per erasure signature."""
         key = (present, missing)
         cached = self._decode_cache.get(key)
         if cached is not None:
@@ -213,16 +269,39 @@ class MatrixErasureCode(ErasureCode):
             for c, p in enumerate(use):
                 full[:, list(present).index(p)] = RM[:, c]
             RM = full
-        entry = (RM, GFMatmul(RM, self.w, self.device))
+        entry = (RM, GFMatmul(RM, self.w, self.device), _mkey(RM))
         self._decode_cache[key] = entry
         return entry
 
     def decode_chunks(self, present: Sequence[int], chunks, missing: Sequence[int]):
         present, missing = tuple(present), tuple(missing)
         _check_survivors(present, self.k)
-        _, engine = self._recovery_matrix(present, missing)
-        x, host = device_bytes(chunks, self.device)
-        return like_input(_apply(engine, x), host)
+        RM, engine, rm_key = self._recovery_matrix(present, missing)
+        shape = _shape(chunks)
+        if (
+            not isinstance(chunks, torch.Tensor)
+            and self.w == 8 and shape[-1] % 8 == 0
+            and type(self) is MatrixErasureCode
+            and native.fits(*RM.shape)
+            and native.host_engine_active(self.device)
+        ):
+            # a CPU codec: the native engine reconstructs with no copies
+            # into torch (the same routing as the encode stack; bytes
+            # identical, the GF algebra is exact)
+            arr = np.asarray(chunks, dtype=np.uint8)
+            with profiler().timed("gf_decode_native", (rm_key, shape),
+                                  nbytes=arr.size, shape=shape,
+                                  compiled=False):
+                return native.encode(RM, arr)
+
+        def run(chunks):
+            x, host = device_bytes(chunks, self.device)
+            return like_input(_apply(engine, x), host)
+
+        return profiler().call_jitted(
+            "gf_decode", (rm_key, shape), run, (chunks,),
+            nbytes=_nbytes(chunks), shape=shape,
+        )
 
 
 class BitmatrixErasureCode(ErasureCode):
@@ -255,8 +334,10 @@ class BitmatrixErasureCode(ErasureCode):
                 f"bitmatrix shape {self.bitmatrix.shape} != ({m * w}, {k * w})"
             )
         self._engine = BitmatrixXor(self.bitmatrix, self.device)
-        # (present, missing) -> (recovery bitmatrix, its engine)
-        self._decode_cache: dict[tuple, tuple[np.ndarray, BitmatrixXor]] = {}
+        # profiler key bytes, serialized once (immutable from here)
+        self._bm_key = self.bitmatrix.tobytes()
+        # (present, missing) -> (recovery bitmatrix, its engine, its key)
+        self._decode_cache: dict[tuple, tuple[np.ndarray, BitmatrixXor, bytes]] = {}
 
     def init(self, profile: Mapping[str, str]) -> None:
         self._profile = dict(profile)
@@ -290,10 +371,21 @@ class BitmatrixErasureCode(ErasureCode):
 
     # -- encode / decode ------------------------------------------------------
 
+    def _packet_shape(self, chunks) -> tuple[int, int]:
+        n, C = _shape(chunks)
+        return n * self.w, C // self.w
+
     def encode_chunks(self, data_chunks):
-        x, host = device_bytes(data_chunks, self.device)
-        out = _apply(self._engine, self._to_packets(x))
-        return like_input(self._from_packets(out, self.m), host)
+        def run(data_chunks):
+            x, host = device_bytes(data_chunks, self.device)
+            out = _apply(self._engine, self._to_packets(x))
+            return like_input(self._from_packets(out, self.m), host)
+
+        shape = self._packet_shape(data_chunks)
+        return profiler().call_jitted(
+            "bitmatrix_encode", (self._bm_key, shape), run, (data_chunks,),
+            nbytes=_nbytes(data_chunks), shape=shape,
+        )
 
     # -- host engine ----------------------------------------------------------
 
@@ -321,13 +413,13 @@ class BitmatrixErasureCode(ErasureCode):
         bitmatrix as :meth:`decode_chunks`."""
         present, missing = tuple(present), tuple(missing)
         _check_survivors(present, self.k)
-        RM, _ = self._recovery_bitmatrix(present, missing)
+        RM, _, _ = self._recovery_bitmatrix(present, missing)
         pk = self._to_packets(np.asarray(chunks, dtype=np.uint8))
         return self._from_packets(self._host_bitmatmul(RM, pk), len(missing))
 
     def _recovery_bitmatrix(
         self, present: tuple[int, ...], missing: tuple[int, ...]
-    ) -> tuple[np.ndarray, BitmatrixXor]:
+    ) -> tuple[np.ndarray, BitmatrixXor, bytes]:
         key = (present, missing)
         cached = self._decode_cache.get(key)
         if cached is not None:
@@ -361,17 +453,36 @@ class BitmatrixErasureCode(ErasureCode):
                 idx = list(present).index(p)
                 full[:, idx * w : (idx + 1) * w] = RM[:, c * w : (c + 1) * w]
             RM = full
-        entry = (RM, BitmatrixXor(RM, self.device))
+        entry = (RM, BitmatrixXor(RM, self.device), RM.tobytes())
         self._decode_cache[key] = entry
         return entry
 
     def decode_chunks(self, present: Sequence[int], chunks, missing: Sequence[int]):
         present, missing = tuple(present), tuple(missing)
         _check_survivors(present, self.k)
-        _, engine = self._recovery_bitmatrix(present, missing)
-        x, host = device_bytes(chunks, self.device)
-        out = _apply(engine, self._to_packets(x))
-        return like_input(self._from_packets(out, len(missing)), host)
+        _, engine, rm_key = self._recovery_bitmatrix(present, missing)
+
+        def run(chunks):
+            x, host = device_bytes(chunks, self.device)
+            out = _apply(engine, self._to_packets(x))
+            return like_input(self._from_packets(out, len(missing)), host)
+
+        shape = self._packet_shape(chunks)
+        return profiler().call_jitted(
+            "bitmatrix_decode", (rm_key, shape), run, (chunks,),
+            nbytes=_nbytes(chunks), shape=shape,
+        )
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+
+
+def _nbytes(x) -> int:
+    """Bytes of a numpy array or a tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return np.asarray(x).nbytes
 
 
 def _gf2_invert(M: np.ndarray) -> np.ndarray:

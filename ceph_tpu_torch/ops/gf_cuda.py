@@ -20,9 +20,14 @@ and flags, so a second process in the same tree loads it without a
 rebuild.  The libraries are bound with ``ctypes``.  Nothing here runs at
 import: this module imports on hosts without CUDA.
 
-Each wrapper takes CUDA tensors only, launches on the current stream,
-raises :class:`KernelLaunchError` when the launch is refused, and adds
-one to its entry in :data:`launches` for every launch.  The routing
+Each wrapper takes CUDA tensors only, launches on the current stream
+with the tensor's device current, raises :class:`KernelLaunchError`
+when the launch is refused, and adds one to its entry in
+:data:`launches` for every launch.  The wrappers are safe to call from
+several threads at once (the OSD dispatcher launches from its worker
+pool): the counts are updated under a lock, and the device is made
+current in the calling thread, because each library caches its grid per
+``cudaGetDevice()`` and a fresh thread's current device is device 0.  The routing
 (CPU tensor -> plain torch version) lives in ``gf_torch``.
 """
 
@@ -75,6 +80,7 @@ BM_PLAN_WORDS = 2 * BM_PLAN_ROWS
 
 # launches per kernel since the last reset_launches()
 launches = {name: 0 for name in SOURCES}
+_LAUNCHES_LOCK = threading.Lock()
 
 _P, _I, _N = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
@@ -99,8 +105,9 @@ class KernelLaunchError(RuntimeError):
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in launches:
+            launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -341,7 +348,8 @@ def _launched(name: str, rc: int) -> None:
     if rc != 0:
         what = "not built for this tile" if rc == -1 else f"cudaError_t {rc}"
         raise KernelLaunchError(f"{name} launch failed: {what}")
-    launches[name] += 1
+    with _LAUNCHES_LOCK:
+        launches[name] += 1
 
 
 def gf_matmul(table: GFTable, d32: torch.Tensor) -> torch.Tensor:
@@ -354,12 +362,13 @@ def gf_matmul(table: GFTable, d32: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(d32.device).cuda_stream
     launch = _lib("gf_matmul").gf_matmul_launch
     row_bytes = 4 * n4
-    for g in table.launches:
-        rc = launch(
-            d32.data_ptr() + g.in_row * row_bytes, out.data_ptr() + g.out_row * row_bytes,
-            g.plan_ptr, table.w, g.k, g.m, g.mt, n4, g.accumulate, stream,
-        )
-        _launched("gf_matmul", rc)
+    with torch.cuda.device(d32.device):
+        for g in table.launches:
+            rc = launch(
+                d32.data_ptr() + g.in_row * row_bytes, out.data_ptr() + g.out_row * row_bytes,
+                g.plan_ptr, table.w, g.k, g.m, g.mt, n4, g.accumulate, stream,
+            )
+            _launched("gf_matmul", rc)
     return out
 
 
@@ -373,10 +382,11 @@ def bitmatrix_xor(table: BitmatrixTable, p32: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(p32.device).cuda_stream
     launch = _lib("bitmatrix_xor").bitmatrix_xor_launch
     row_bytes = 4 * n4
-    for g in table.launches:
-        rc = launch(
-            p32.data_ptr(), out.data_ptr() + g.out_row * row_bytes, g.plan_ptr,
-            len(g.rows), g.m, g.mt, n4, g.accumulate, stream,
-        )
-        _launched("bitmatrix_xor", rc)
+    with torch.cuda.device(p32.device):
+        for g in table.launches:
+            rc = launch(
+                p32.data_ptr(), out.data_ptr() + g.out_row * row_bytes, g.plan_ptr,
+                len(g.rows), g.m, g.mt, n4, g.accumulate, stream,
+            )
+            _launched("bitmatrix_xor", rc)
     return out

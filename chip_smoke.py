@@ -37,9 +37,30 @@ Phases, each fatal on any mismatch or exception:
    three-erasure ISA recovery matrix, ``bitmatrix_xor`` also on the
    one- and four-erasure cauchy_good decode matrices, each beside its
    own bound; the end-to-end RS(8,3) encode and decode GB/s through the
-   registry, with host numpy in and out and device-resident; and the
+   registry, with host numpy in and out and device-resident, each with
+   the kernel profiler's tap and with it bypassed, in turns; and the
    device-resident cauchy_good k=10 m=4 encode and decode beside the two
-   packet-layout copies they make.
+   packet-layout copies they make;
+6. the OSD EC engine, with the launch counts set to 0 just before it: the
+   cross-op microbatch dispatcher built as the OSD builds it (window
+   0.0005 s, 512 stripes, bucketing on, launch deadline 30 s, failover on
+   under an ``EngineSupervisor``, 2 worker threads, ``create_ec_perf``),
+   driving pool A (ISA RS(8,3), stripe unit 4096: 64 concurrent 4 MiB
+   writes, then ``decode_concat`` of all 64 with shard 0 lost and with
+   shards 1, 5, 9 lost) and pool B (jerasure cauchy_good k=10 m=4,
+   packetsize 4096: 64 concurrent 4 MiB objects padded to 13 stripes, then
+   a four-erasure ``decode_concat``), every byte of every timed run
+   checked against the host engine (pool A is also written a second time,
+   and once more through a dispatcher with one worker thread); then one
+   pool-A batch with ``inject_engine_failure`` on (its
+   waiters must get the same bytes through the host replay) and the
+   canary's re-promotion of the card.  Outside the injected batch no op
+   may be served off the card (failovers, fallback-direct and
+   native-direct all 0), ``gf_matmul`` must launch in pool A and
+   ``bitmatrix_xor`` in pool B, and the supervisor must end HEALTHY.  It
+   also times the parts of one dispatched 16 MiB ISA launch: the host
+   gather, the copy to the card, the permute, the kernel, the
+   concatenation, the copy back and the per-op slices.
 
 Output: the card line, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -53,6 +74,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -60,6 +82,22 @@ import numpy as np
 OBJECTS = 64
 OBJECT_SIZE = 1 << 20
 SEED = 20261017
+
+# phase 6: the OSD's dispatcher defaults (ceph_tpu/common/config.py:261-300)
+# and object size (RBD's default 4 MiB objects)
+OSD_WINDOW_S = 0.0005
+OSD_MAX_STRIPES = 512
+OSD_LAUNCH_DEADLINE_S = 30.0
+OSD_PROBE_INTERVAL_S = 1.0
+OSD_WORKERS = 2
+OSD_OBJECT_SIZE = 4 << 20
+OSD_OPS = 64
+# pool A: ISA RS(8,3) with Ceph's default stripe unit (chunk) of 4096
+POOL_A = ("isa", {"k": "8", "m": "3"}, 4096)
+# pool B: the BASELINE jerasure cauchy_good k=10 m=4, packetsize 4096
+# (its chunk is w * packetsize = 32768)
+POOL_B = ("jerasure", {"technique": "cauchy_good", "k": "10", "m": "4",
+                       "packetsize": "4096"}, 32768)
 
 # H100 SXM device memory rate (NVIDIA data sheet)
 MEMORY_BYTES_PER_S = 3.35e12
@@ -458,6 +496,7 @@ def time_end_to_end(dev, rng) -> dict:
     import torch
 
     from ceph_tpu_torch.models import registry
+    from ceph_tpu_torch.ops.profiler import KernelProfiler, profiler
 
     codec = registry.instance().factory("isa", {"k": "8", "m": "3"})
     k = codec.get_data_chunk_count()
@@ -479,17 +518,54 @@ def time_end_to_end(dev, rng) -> dict:
         codec.decode_chunks(present, survivors_t, missing)
         torch.cuda.synchronize()
 
-    out = {
-        "encode_host_numpy": time_wall(lambda: codec.encode_chunks(data), 10),
-        "decode_host_numpy": time_wall(
-            lambda: codec.decode_chunks(present, survivors, missing), 10),
-        "encode_device_resident": time_wall(dev_encode, 20),
-        "decode_device_resident": time_wall(dev_decode, 20),
+    def dev_encode_x10():  # a caller that keeps the card fed
+        for _ in range(10):
+            codec.encode_chunks(data_t)
+        torch.cuda.synchronize()
+
+    cases = {
+        "encode_host_numpy": (lambda: codec.encode_chunks(data), 10),
+        "decode_host_numpy": (lambda: codec.decode_chunks(present, survivors, missing), 10),
+        "encode_device_resident": (dev_encode, 20),
+        "decode_device_resident": (dev_decode, 20),
+        "encode_device_resident_10_back_to_back": (dev_encode_x10, 10),
     }
-    gbps = {key: nbytes / s / 1e9 for key, s in out.items()}
-    for key, s in out.items():
-        log(f"  isa RS(8,3) {key}: {gbps[key]:.3f} GB/s ({s * 1e3:.3f} ms for "
-            f"{OBJECTS} x 1 MiB objects, host clock)")
+    # the codec entries pass through the kernel profiler's tap; time them
+    # with the tap and with it bypassed, in turns (on, off, off, on)
+    tap = KernelProfiler.call_jitted
+
+    def bypass(self, engine, key, fn, args, *, nbytes=0, shape=None, wrap=None):
+        out = fn(*args)
+        return out if wrap is None else wrap(out)
+
+    times = {key: {"on": [], "off": []} for key in cases}
+    try:
+        for mode in ("on", "off", "off", "on"):
+            KernelProfiler.call_jitted = tap if mode == "on" else bypass
+            for key, (fn, reps) in cases.items():
+                times[key][mode].append(time_wall(fn, reps))
+    finally:
+        KernelProfiler.call_jitted = tap
+    # the tap times a call on the card between CUDA events, read later
+    profiler().reset()
+    for _ in range(20):
+        codec.encode_chunks(data_t)
+    eng = profiler().dump()["engines"]["gf_encode"]
+    tap_s = eng["exec_time"] + eng["first_exec_s"]
+    if eng["calls"] != 20 or not tap_s > 0:
+        raise AssertionError(f"profiler tap on the card: {eng}")
+    log(f"  profiler gf_encode, 20 device-resident calls back to back: "
+        f"{tap_s / 20 * 1e3:.4f} ms a call on the card (CUDA events)")
+    gbps = {}
+    for key, t in times.items():
+        on, off = statistics.median(t["on"]), statistics.median(t["off"])
+        n = 10 * nbytes if key.endswith("back_to_back") else nbytes
+        gbps[key] = n / on / 1e9
+        log(f"  isa RS(8,3) {key}: {gbps[key]:.3f} GB/s ({on * 1e3:.4f} ms for "
+            f"{n // nbytes} x {OBJECTS} x 1 MiB objects, host clock); profiler tap bypassed "
+            f"{n / off / 1e9:.3f} GB/s ({off * 1e3:.4f} ms); each pass, ms: "
+            f"on {[round(x * 1e3, 4) for x in t['on']]}, "
+            f"off {[round(x * 1e3, 4) for x in t['off']]}")
     return gbps
 
 
@@ -534,6 +610,321 @@ def time_packet_layout(dev, rng) -> None:
         f"{list(data_t.shape)} {to_ms} ms, _from_packets of the parity "
         f"{list(packets_out.shape)} {from_ms} ms; together "
         f"{(to_ms + from_ms) / (encode_s * 1e3):.1%} of the device-resident encode")
+
+
+# -- phase 6: the OSD EC engine ----------------------------------------------------
+
+
+def _delta(before: dict, after: dict) -> dict:
+    """after - before over the numbers of two nested dispatcher dumps."""
+    out = {}
+    for key, value in after.items():
+        if isinstance(value, dict):
+            out[key] = _delta(before.get(key, {}), value)
+        elif isinstance(value, (int, float)) and not isinstance(value, bool):
+            out[key] = value - before.get(key, 0)
+    return out
+
+
+def _pool_line(name: str, before: dict, after: dict) -> str:
+    d = _delta(before, after)
+    t = d["totals"]
+    buckets = {k: v for k, v in d["buckets"].items() if v}
+    return (f"  {name}: ops {t['ops']}, stripes {t['stripes']}, batches {t['batches']}, "
+            f"flush {t['flush_reasons']}, pad stripes {t['pad_stripes']}, buckets {buckets}")
+
+
+def _check_shards(what: str, got: dict, want: dict) -> None:
+    if sorted(got) != sorted(want) or any(
+            not np.array_equal(np.asarray(got[s]), np.asarray(want[s])) for s in want):
+        raise AssertionError(f"{what}: shards differ from ec_util.encode_fallback")
+
+
+def time_launch_breakdown(dev, codec, sinfo, objs) -> dict:
+    """The parts of one dispatched ISA launch of OSD_MAX_STRIPES stripes,
+    each timed alone: host gather of the ops' payloads into one buffer,
+    copy to the card, the permute to shard rows, the kernel, the
+    concatenation of data and parity rows, the copy back, and the per-op
+    shard slices the waiters get; beside the whole ``ec_util.encode``
+    call on the gathered buffer.  Host parts on the host clock (ending
+    synchronised), device parts with CUDA events in batches of 20."""
+    import torch
+
+    from ceph_tpu_torch.osd import ec_util
+
+    sw, cs = sinfo.stripe_width, sinfo.chunk_size
+    k = codec.get_data_chunk_count()
+    per_op = len(objs[0]) // sw
+
+    def gather():
+        cat = np.zeros(OSD_MAX_STRIPES * sw, dtype=np.uint8)
+        for i, o in enumerate(objs):
+            cat[i * per_op * sw:(i + 1) * per_op * sw] = o
+        return cat
+
+    cat = gather()
+    d3 = cat.view(np.int32).reshape(OSD_MAX_STRIPES, k, cs // 4)
+
+    def h2d():
+        x = torch.from_numpy(d3).to(dev)
+        torch.cuda.synchronize()
+        return x
+
+    x = h2d()
+    flat = x.permute(1, 0, 2).reshape(k, -1)
+    parity = codec._engine(flat)
+    out = torch.cat([flat, parity])
+    host_out = out.cpu().numpy()
+
+    def slices():
+        return [{s: host_out[s][i * per_op * cs // 4:(i + 1) * per_op * cs // 4].copy()
+                 for s in range(host_out.shape[0])} for i in range(len(objs))]
+
+    def d2h():
+        out.cpu().numpy()
+
+    def whole():
+        ec_util.encode(sinfo, codec, cat)
+
+    parts = {
+        "host gather": time_wall(gather, 10) * 1e3,
+        "copy to the card": time_wall(h2d, 10) * 1e3,
+        "permute": time_cuda(lambda: x.permute(1, 0, 2).reshape(k, -1), reps=20, batch=20),
+        "kernel": time_cuda(lambda: codec._engine(flat), reps=20, batch=20),
+        "cat": time_cuda(lambda: torch.cat([flat, parity]), reps=20, batch=20),
+        "copy back": time_wall(d2h, 10) * 1e3,
+        "per-op slices": time_wall(slices, 10) * 1e3,
+    }
+    whole_ms = time_wall(whole, 10) * 1e3
+    # the same call as the dispatcher makes it: on a freshly gathered
+    # buffer each time, and from a worker thread
+    fresh_ms = time_wall(lambda: ec_util.encode(sinfo, codec, gather()), 10) * 1e3
+    n = per_op * cs
+
+    def cycle():  # what one dispatcher worker does for one launch
+        out = ec_util.encode(sinfo, codec, gather())
+        return [{s: a[i * n:(i + 1) * n].copy() for s, a in out.items()}
+                for i in range(len(objs))]
+
+    with ThreadPoolExecutor(1) as pool:
+        worker_ms = time_wall(lambda: pool.submit(whole).result(), 10) * 1e3
+        cycle_ms = time_wall(lambda: pool.submit(cycle).result(), 10) * 1e3
+        # the dispatcher's waiters hold their slices, so each launch
+        # allocates fresh host memory instead of reusing the last one's
+        kept = []
+        kept_ms = time_wall(lambda: kept.append(pool.submit(cycle).result()), 10) * 1e3
+        del kept
+    total = sum(parts.values())
+    log(f"  one dispatched ISA launch of {OSD_MAX_STRIPES} stripes "
+        f"({OSD_MAX_STRIPES * sw >> 20} MiB in, {host_out.nbytes >> 20} MiB out), "
+        f"parts timed alone (ms): " + ", ".join(
+            f"{name} {ms} ({ms / total:.1%})" for name, ms in parts.items()))
+    log(f"  sum of parts {total} ms; ec_util.encode on the gathered buffer {whole_ms} ms, "
+        f"on a fresh gather each call {fresh_ms} ms with the gather, from a worker "
+        f"thread {worker_ms} ms; gather, encode and slices in a worker thread "
+        f"{cycle_ms} ms, keeping every launch's slices as the waiters do {kept_ms} ms")
+    return {"parts_ms": parts, "whole_encode_ms": whole_ms}
+
+
+def run_osd_engine(dev, rng) -> dict:
+    """Phase 6 (see the module docstring).  Returns the kernels' launch
+    counts over the whole drive, counted from one reset at its start:
+    both pool-A gathers and its decodes, the one-worker run, pool B, the
+    canary's probes and the batch after re-promotion (the injected batch
+    launches nothing; the launch breakdown's timing launches come after
+    and are not counted)."""
+    import asyncio
+
+    import torch
+
+    from ceph_tpu_torch.common.perf_counters import PerfCountersCollection
+    from ceph_tpu_torch.models import registry
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.ops.profiler import profiler
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.ec_dispatch import ECDispatcher
+    from ceph_tpu_torch.osd.ec_failover import HEALTHY, STATE_NAMES, EngineSupervisor
+    from ceph_tpu_torch.osd.ec_perf import create_ec_perf
+
+    def make_pool(spec):
+        plugin, profile, chunk = spec
+        codec = registry.instance().factory(plugin, dict(profile))
+        if codec.device != dev:
+            raise AssertionError(f"{plugin} codec on {codec.device}, expected {dev}")
+        k = codec.get_data_chunk_count()
+        return codec, ec_util.StripeInfo(k * chunk, chunk)
+
+    codec_a, sinfo_a = make_pool(POOL_A)
+    codec_b, sinfo_b = make_pool(POOL_B)
+    objs = [rng.integers(0, 256, size=OSD_OBJECT_SIZE, dtype=np.uint8)
+            for _ in range(OSD_OPS)]
+    objs_b = [np.frombuffer(sinfo_b.pad_to_stripe(o.tobytes()), dtype=np.uint8)
+              for o in objs]
+    total_bytes = OSD_OPS * OSD_OBJECT_SIZE
+    log(f"  pool A: isa k=8 m=3, chunk {sinfo_a.chunk_size}, stripe width "
+        f"{sinfo_a.stripe_width}; pool B: cauchy_good k=10 m=4, chunk "
+        f"{sinfo_b.chunk_size}, stripe width {sinfo_b.stripe_width}; "
+        f"{OSD_OPS} objects of {OSD_OBJECT_SIZE >> 20} MiB "
+        f"({len(objs_b[0]) // sinfo_b.stripe_width} stripes each in pool B)")
+
+    perf = PerfCountersCollection()
+    pec = create_ec_perf(perf)
+    sup = EngineSupervisor(enabled=True, perf=pec, probe_interval=OSD_PROBE_INTERVAL_S)
+    launches = {}
+
+    async def main():
+        disp = ECDispatcher(
+            perf=pec, window=OSD_WINDOW_S, max_stripes=OSD_MAX_STRIPES, bucket=True,
+            max_workers=OSD_WORKERS, supervisor=sup,
+            launch_deadline=OSD_LAUNCH_DEADLINE_S,
+        )
+
+        async def timed(coros):
+            t0 = time.perf_counter()
+            out = await asyncio.gather(*coros)
+            return out, time.perf_counter() - t0
+
+        def gbps(seconds):
+            return f"{total_bytes / seconds / 1e9:.3f} GB/s ({seconds * 1e3:.1f} ms)"
+
+        def snapshot():
+            torch.cuda.synchronize()
+            return dict(gf_cuda.launches)
+
+        def kernel_counts(name, since):
+            got = {n: c - since[n] for n, c in snapshot().items()}
+            log(f"  launches in {name}: {got}")
+            return got
+
+        def off_card(d, name):
+            t = d["totals"]
+            for key in ("failovers", "fallback_direct", "native_direct", "deadline_timeouts"):
+                if t[key]:
+                    raise AssertionError(f"{t[key]} {key} in {name}: an op was served off "
+                                         "the card")
+
+        # the phase's launches are counted from this one reset
+        gf_cuda.reset_launches()
+        start = snapshot()
+        want_a = [ec_util.encode_fallback(sinfo_a, codec_a, o) for o in objs]
+
+        # pool A
+        profiler().reset()
+        before = disp.dump()
+        shards_a, enc_s = await timed(disp.encode(sinfo_a, codec_a, o) for o in objs)
+        again, enc2_s = await timed(disp.encode(sinfo_a, codec_a, o) for o in objs)
+        for run in (shards_a, again):
+            for i, got in enumerate(run):
+                _check_shards(f"pool A op {i}", got, want_a[i])
+        del again
+        log(f"  pool A encode, {OSD_OPS} x 4 MiB, bytes == encode_fallback in both: first "
+            f"gather {gbps(enc_s)}, second {gbps(enc2_s)} (host clock)")
+        for lost in ((0,), (1, 5, 9)):
+            outs, dec_s = await timed(
+                disp.decode_concat(sinfo_a, codec_a,
+                                   {s: v for s, v in sh.items() if s not in lost})
+                for sh in shards_a)
+            for i, (o, got) in enumerate(zip(objs, outs)):
+                if bytes(got) != o.tobytes():
+                    raise AssertionError(f"pool A op {i}: decode_concat of {lost} differs")
+            log(f"  pool A decode_concat with shards {list(lost)} lost, bytes == written: "
+                f"{gbps(dec_s)} (host clock)")
+        log(_pool_line("pool A", before, disp.dump()))
+        launches["pool A"] = kernel_counts("pool A", start)
+        shard_eng = profiler().dump()["engines"]["ec_shards"]
+        hits = shard_eng["jit_cache"]["hits"]
+        log(f"  profiler ec_shards: {shard_eng['calls']} calls, shapes {shard_eng['shapes']}, "
+            f"first call {shard_eng['first_exec_s'] * 1e3:.3f} ms, steady state "
+            f"{shard_eng['exec_time'] / max(hits, 1) * 1e3:.3f} ms a call over {hits} "
+            f"calls ({shard_eng['exec_gbps']} GB/s of input lanes)")
+        del shards_a
+        # the same writes through a dispatcher with one worker thread:
+        # what the second worker's overlap buys, and what it costs each call
+        one = ECDispatcher(window=OSD_WINDOW_S, max_stripes=OSD_MAX_STRIPES, max_workers=1)
+        profiler().reset()
+        one_out, one_s = await timed(one.encode(sinfo_a, codec_a, o) for o in objs)
+        await one.stop()
+        for i, got in enumerate(one_out):
+            _check_shards(f"pool A op {i} through one worker", got, want_a[i])
+        off_card(one.dump(), "the one-worker run")
+        del one_out, want_a
+        one_eng = profiler().dump()["engines"]["ec_shards"]
+        log(f"  pool A encode through one worker thread, bytes == encode_fallback: "
+            f"{gbps(one_s)}; ec_shards "
+            f"{one_eng['exec_time'] / max(one_eng['jit_cache']['hits'], 1) * 1e3:.3f} ms "
+            f"a call (host clock)")
+
+        # pool B
+        since = snapshot()
+        before = disp.dump()
+        shards_b, enc_s = await timed(disp.encode(sinfo_b, codec_b, o) for o in objs_b)
+        for i, (o, got) in enumerate(zip(objs_b, shards_b)):
+            _check_shards(f"pool B op {i}", got, ec_util.encode_fallback(sinfo_b, codec_b, o))
+        lost = (0, 4, 11, 13)
+        outs, dec_s = await timed(
+            disp.decode_concat(sinfo_b, codec_b, {s: v for s, v in sh.items() if s not in lost})
+            for sh in shards_b)
+        for i, (o, got) in enumerate(zip(objs_b, outs)):
+            if bytes(got) != o.tobytes():
+                raise AssertionError(f"pool B op {i}: decode_concat of {lost} differs")
+        log(f"  pool B encode, {OSD_OPS} objects, bytes == encode_fallback: {gbps(enc_s)}; "
+            f"decode_concat with shards {list(lost)} lost, bytes == written: "
+            f"{gbps(dec_s)} (host clock, object bytes before padding)")
+        log(_pool_line("pool B", before, disp.dump()))
+        launches["pool B"] = kernel_counts("pool B", since)
+        del shards_b, outs
+
+        off_card(disp.dump(), "pools A and B")
+        if launches["pool A"]["gf_matmul"] == 0:
+            raise AssertionError("gf_matmul was not launched in pool A")
+        if launches["pool B"]["bitmatrix_xor"] == 0:
+            raise AssertionError("bitmatrix_xor was not launched in pool B")
+
+        # failover: two pool-A launches with the injected fault, then the canary
+        batch = objs[:2 * OSD_MAX_STRIPES // (OSD_OBJECT_SIZE // sinfo_a.stripe_width)]
+        disp.inject_engine_failure = 1
+        replayed, _ = await timed(disp.encode(sinfo_a, codec_a, o) for o in batch)
+        disp.inject_engine_failure = 0
+        for i, (o, got) in enumerate(zip(batch, replayed)):
+            _check_shards(f"injected batch op {i}", got,
+                          ec_util.encode_fallback(sinfo_a, codec_a, o))
+        t = disp.dump()["totals"]
+        log(f"  injected fault: {len(batch)} ops, failovers {t['failovers']}, replayed ops "
+            f"{t['replayed_ops']}, supervisor {STATE_NAMES[sup.state]}; bytes == "
+            f"encode_fallback")
+        if t["failovers"] != 2 or t["replayed_ops"] != len(batch):
+            raise AssertionError(f"injected fault: failovers {t['failovers']}, "
+                                 f"replayed {t['replayed_ops']}")
+        t0 = time.perf_counter()
+        while sup.state != HEALTHY:
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError(f"canary did not re-promote: {sup.dump()}")
+            await asyncio.sleep(0.05)
+        log(f"  canary re-promoted the card after {time.perf_counter() - t0:.2f} s "
+            f"(probes {sup.totals['probes']}, promotions {sup.totals['promotions']})")
+        since = snapshot()
+        after, _ = await timed(disp.encode(sinfo_a, codec_a, o) for o in batch[:4])
+        for i, (o, got) in enumerate(zip(batch, after)):
+            _check_shards(f"post-promotion op {i}", got,
+                          ec_util.encode_fallback(sinfo_a, codec_a, o))
+        launches["after promotion"] = kernel_counts("the batch after re-promotion", since)
+        t = disp.dump()["totals"]
+        if (t["failovers"], t["fallback_direct"], t["native_direct"]) != (2, 0, 0):
+            raise AssertionError(f"ops served off the card outside the injected batch: {t}")
+        if launches["after promotion"]["gf_matmul"] == 0:
+            raise AssertionError("gf_matmul was not launched after re-promotion")
+        if sup.state != HEALTHY:
+            raise AssertionError(f"supervisor {STATE_NAMES[sup.state]} at the end")
+        log(f"  dispatcher totals: {t}")
+        log(f"  ec perf: encode_time {pec.dump()['encode_time']}, "
+            f"decode_time {pec.dump()['decode_time']}")
+        await disp.stop()
+        launches["phase"] = kernel_counts("the whole phase", start)
+
+    asyncio.run(main())
+    time_launch_breakdown(dev, codec_a, sinfo_a,
+                          objs[:OSD_MAX_STRIPES // (OSD_OBJECT_SIZE // sinfo_a.stripe_width)])
+    return launches["phase"]
 
 
 def main() -> int:
@@ -590,6 +981,11 @@ def main() -> int:
     rows = time_kernels(dev, inputs, launches)
     time_end_to_end(dev, rng)
     time_packet_layout(dev, rng)
+
+    log("== 6. OSD EC engine")
+    osd_launches = run_osd_engine(dev, rng)
+    for row in rows:
+        row["launches_osd_engine"] = osd_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -45,8 +45,19 @@ _BLOCKED_IMPORT = textwrap.dedent("""
         importlib.import_module(name)
     leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
     assert not leaked, leaked
-    print(len(names), "modules")
+    print(" ".join(names))
 """)
+
+# every module of the OSD EC engine slice, in its two new subpackages too
+_SLICE_MODULES = {
+    "ceph_tpu_torch.common.perf_counters", "ceph_tpu_torch.common.tracing",
+    "ceph_tpu_torch.utils.arch", "ceph_tpu_torch.utils.native",
+    "ceph_tpu_torch.utils.buffers", "ceph_tpu_torch.ops.profiler",
+    "ceph_tpu_torch.ops.device_trace", "ceph_tpu_torch.models.matrix_codec",
+    "ceph_tpu_torch.osd.ec_perf", "ceph_tpu_torch.osd.ec_util",
+    "ceph_tpu_torch.osd.ec_transaction", "ceph_tpu_torch.osd.ec_failover",
+    "ceph_tpu_torch.osd.ec_dispatch",
+}
 
 
 def _needs_no_cuda():
@@ -60,7 +71,9 @@ def test_port_imports_without_jax_or_ceph_tpu():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 20  # every module of the slice
+    names = set(out.stdout.split())
+    assert len(names) >= 33  # every module of the package
+    assert _SLICE_MODULES <= names, _SLICE_MODULES - names
 
 
 def test_defaults_raise_without_cuda():
