@@ -1,13 +1,17 @@
-"""The Hopper kernels of the GF region engines: build, binding, launches.
+"""The port's Hopper kernels: build, binding, launches; and the GF region
+kernels' wrappers.
 
-Counterpart of ``ceph_tpu/ops/gf_pallas.py``.  Two kernels, written in
+Counterpart of ``ceph_tpu/ops/gf_pallas.py``.  Three kernels, written in
 CUDA C++ under ``ceph_tpu_torch/csrc/``:
 
 - ``gf_matmul`` (``csrc/gf_matmul.cu``) replaces
   ``make_gf_matmul_pallas``: GF(2^w) region product by the doubling
   method, w = 8 or 16;
 - ``bitmatrix_xor`` (``csrc/bitmatrix_xor.cu``) replaces
-  ``make_bitmatrix_matmul_pallas``: packet XOR over a GF(2) bit-matrix.
+  ``make_bitmatrix_matmul_pallas``: packet XOR over a GF(2) bit-matrix;
+- ``crush_straw2`` (``csrc/crush_straw2.cu``) replaces the straw2 draw
+  of the reference's CRUSH XLA programs; its wrapper is in
+  ``crush_cuda``, its build, library and launch count here.
 
 Unlike the Pallas kernels, which unroll the matrix at trace time, the
 matrix is a runtime argument: each library is built once, and a matrix
@@ -51,7 +55,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
-SOURCES = {"gf_matmul": "gf_matmul.cu", "bitmatrix_xor": "bitmatrix_xor.cu"}
+SOURCES = {"gf_matmul": "gf_matmul.cu", "bitmatrix_xor": "bitmatrix_xor.cu",
+           "crush_straw2": "crush_straw2.cu"}
+# the kernels of the erasure-code path (the codecs and the OSD engine)
+EC_KERNELS = ("gf_matmul", "bitmatrix_xor")
 HEADERS = ("async_copy.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,6 +84,9 @@ BITMATRIX_TILES = (8, 16, 32)
 # into chunks
 BM_PLAN_ROWS = 512
 BM_PLAN_WORDS = 2 * BM_PLAN_ROWS
+# crush_straw2's ln tables, in step with kLnEntries of csrc/crush_straw2.cu:
+# RH_LH_TBL (258 int64) then LL_TBL (256)
+LN_ENTRIES = 514
 
 # launches per kernel since the last reset_launches()
 launches = {name: 0 for name in SOURCES}
@@ -90,6 +100,10 @@ _ARGTYPES = {
     # in (row 0), out (the tile's first row), plan (host bytes), used
     # input rows, output rows, mt, n4, accumulate, stream
     "bitmatrix_xor": [_P, _P, _P, _I, _I, _I, _N, _I, _P],
+    # x, rows, r (int32 lanes), items, weights, child_row, child_type
+    # ([B, I] int32), size ([B] int32), ln tables (int64), B, I, lanes,
+    # out (int32 [3, lanes]), empty (bool [lanes]), stream
+    "crush_straw2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _N, _P, _P, _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -185,6 +199,8 @@ def _lib(name: str) -> ctypes.CDLL:
             if (name == "bitmatrix_xor"
                     and lib.bitmatrix_xor_plan_bytes() != 4 * BM_PLAN_WORDS):
                 raise KernelBuildError("bitmatrix_xor.cu's Plan differs from BM_PLAN_ROWS")
+            if name == "crush_straw2" and lib.crush_straw2_ln_entries() != LN_ENTRIES:
+                raise KernelBuildError("crush_straw2.cu's ln tables differ from LN_ENTRIES")
             _LIBS[name] = lib
     return _LIBS[name]
 

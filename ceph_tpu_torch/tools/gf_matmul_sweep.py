@@ -1,4 +1,5 @@
-"""Time, tune and inspect the region kernels on one CUDA card.
+"""Time, tune and inspect the region kernels (and ``crush_straw2``'s SASS)
+on one CUDA card.
 
 Run from the root of the repository on a machine with a card and
 ``nvcc``::
@@ -8,7 +9,8 @@ Run from the root of the repository on a machine with a card and
     python3 -m ceph_tpu_torch.tools.gf_matmul_sweep [--kernel K] --sweep
     python3 -m ceph_tpu_torch.tools.gf_matmul_sweep [--kernel K] --sass OUT_DIR [--mt N]
 
-``--kernel`` picks ``gf_matmul`` (the default) or ``bitmatrix_xor``.
+``--kernel`` picks ``gf_matmul`` (the default) or ``bitmatrix_xor``;
+``crush_straw2`` takes only ``--sass``.
 
 ``--time`` checks the kernel's public wrapper bit-exact against the
 plain version and times it through that wrapper (CUDA events, median
@@ -45,7 +47,11 @@ its tables to match), and times each variant through the wrapper as
 ``OUT_DIR/<kernel>.sass`` and prints the opcode counts of one
 instantiation: the w=8 kernel of an output tile of ``--mt`` (default 3,
 ISA's RS(8,3)) for ``gf_matmul``, the output tile of ``--mt`` (default
-32, cauchy_good k=10 m=4) for ``bitmatrix_xor``.  With
+32, cauchy_good k=10 m=4) for ``bitmatrix_xor``, the one kernel for
+``crush_straw2`` (the dump's addresses locate a draw's path: the item
+loop, the normalisation, the inline divide and the 64-bit divide's
+subroutine, which ``chip_smoke.py``'s ``INSTRUCTIONS_PER_DRAW`` counts).
+With
 ``PYTHONPATH=TREE python3 ceph_tpu_torch/tools/gf_matmul_sweep.py``
 every mode runs on TREE's package instead.
 
@@ -163,6 +169,8 @@ KERNELS = {
          (512, 8, 8, 4, 3)],
         "bitmatrix_xor_kernelILi{mt}E", 32),
 }
+# kernels that only --sass takes: name -> the kernel's symbol
+SASS_ONLY = {"crush_straw2": "crush_straw2_kernel"}
 
 
 def _time(fn, reps: int, batch: int = 20) -> float:
@@ -302,14 +310,14 @@ def sweep(kernel: Kernel, reps: int) -> None:
                           "ms_one_launch": [t[1] for t in ts]}), flush=True)
 
 
-def sass(kernel: Kernel, out_dir: Path, mt: int) -> None:
+def sass(name: str, symbol: str, out_dir: Path, mt: int | None) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     cuobjdump = shutil.which("cuobjdump") or str(Path(gf_cuda._nvcc()).parent / "cuobjdump")
-    gf_cuda.build((kernel.name,))
-    text = subprocess.run([cuobjdump, "-sass", str(gf_cuda.library_path(kernel.name))],
+    gf_cuda.build((name,))
+    text = subprocess.run([cuobjdump, "-sass", str(gf_cuda.library_path(name))],
                           capture_output=True, text=True, check=True).stdout
-    (out_dir / f"{kernel.name}.sass").write_text(text)
-    sym = re.compile(r"Function : \S*" + kernel.symbol.format(mt=mt))
+    (out_dir / f"{name}.sass").write_text(text)
+    sym = re.compile(r"Function : \S*" + symbol)
     body, inside = [], False
     for line in text.splitlines():
         if "Function :" in line:
@@ -319,16 +327,16 @@ def sass(kernel: Kernel, out_dir: Path, mt: int) -> None:
             if op:
                 body.append(op.group(2).split(".")[0])
     print(json.dumps({"package": str(Path(gf_cuda.__file__).parents[2]),
-                      "kernel": kernel.name, "mt": mt, "instructions": len(body),
+                      "kernel": name, "mt": mt, "instructions": len(body),
                       "by_opcode": dict(Counter(body).most_common())}), flush=True)
-    for line in gf_cuda.build_log(kernel.name).splitlines():
+    for line in gf_cuda.build_log(name).splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(json.dumps({"ptxas": line.strip()}), flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=sorted(KERNELS), default="gf_matmul")
+    ap.add_argument("--kernel", choices=sorted([*KERNELS, *SASS_ONLY]), default="gf_matmul")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--compare", type=Path, metavar="TREE")
     ap.add_argument("--sweep", action="store_true")
@@ -339,10 +347,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("gf_matmul_sweep: CUDA is not available", file=sys.stderr)
         return 2
+    if args.kernel in SASS_ONLY:
+        if args.time or args.compare or args.sweep or not args.sass:
+            ap.error(f"--kernel {args.kernel} takes only --sass")
+        print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
+        sass(args.kernel, SASS_ONLY[args.kernel], args.sass, None)
+        return 0
     kernel = KERNELS[args.kernel]
     print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
     if args.sass:
-        sass(kernel, args.sass, args.mt or kernel.mt)
+        mt = args.mt or kernel.mt
+        sass(kernel.name, kernel.symbol.format(mt=mt), args.sass, mt)
     if args.time:
         time_package(kernel, args.reps)
     if args.compare:

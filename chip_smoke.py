@@ -10,7 +10,7 @@ the CUDA toolkit (``nvcc``):
 Phases, each fatal on any mismatch or exception:
 
 1. the card: ``nvidia-smi`` name and power limit, and torch's name;
-2. build the two Hopper kernels from ``ceph_tpu_torch/csrc`` (one
+2. build the three Hopper kernels from ``ceph_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the build seconds and the
    compiler's register counts;
 3. hold each kernel bit-exact against its plain torch version on the
@@ -29,7 +29,7 @@ Phases, each fatal on any mismatch or exception:
    originals and parity equal to ``encode_chunks_host``, then encode and
    decode again from tensors on the card; then the port's
    ``tools/ec_benchmark`` once for encode and once for decode.  Each
-   kernel must have launched in this phase;
+   erasure-code kernel must have launched in this phase;
 5. time each kernel at its main-path shape (CUDA events, median of many
    launches, one launch between two events for the ``kernels`` line and
    also batches of 20 back-to-back launches) beside its plain version and
@@ -60,7 +60,21 @@ Phases, each fatal on any mismatch or exception:
    ``bitmatrix_xor`` in pool B, and the supervisor must end HEALTHY.  It
    also times the parts of one dispatched 16 MiB ISA launch: the host
    gather, the copy to the card, the permute, the kernel, the
-   concatenation, the copy back and the per-op slices.
+   concatenation, the copy back and the per-op slices;
+7. CRUSH bulk placement: ``crush_straw2`` bit-exact against its plain
+   version (flat_64's row over 1M lanes; rows with zero weights, one
+   item, none, weights from 0x100 to 0x100000; the rows of a 1536-OSD
+   map; X = 1, 31 and 1M+7; random r), timed beside its bound; then,
+   with the launch counts set to 0, the main path: ``CrushTester`` (the
+   ``crushtool --test`` engine) over x = 0..999,999 on flat_64 firstn and
+   indep, chooseleaf_16x4, 8 racks x 16 hosts x 12 devices, and the
+   chained LRC rule, each twice on the batched path with the kernel
+   launched, three of them a third time under ``torch.profiler`` (the
+   card's busy and idle time), and ``crushtool --test`` once; then each
+   case's whole output through
+   the kernel equals the same call with the draw routed to its plain
+   version, 4096 evenly spread lanes equal the scalar mapper, and the
+   tester's counts equal a count of the output.
 
 Output: the card line, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -111,6 +125,25 @@ INT32_OPS_PER_CLOCK_PER_SM = 64
 # high mask ANDed with the polynomial (ceph_tpu_torch/csrc/gf_matmul.cu
 # gf_double)
 OPS_PER_DOUBLING = 4
+
+# phase 7: CRUSH inputs per case (crushtool --test --max-x 999999), lanes
+# checked against the scalar mapper per case
+CRUSH_X = 1_000_000
+CRUSH_SAMPLE = 4096
+# crush_straw2's bound counts SASS instructions over the issue rate: each
+# SM's four schedulers issue at most one warp instruction (32 lanes) a
+# clock each, whatever the pipe
+ISSUE_LANES_PER_CLOCK_PER_SM = 128
+# SASS instructions of one draw on flat_64's row (w > 0, a dividend above
+# 32 bits) in nvcc 12.9's sm_90a build, read from the dump of
+# `gf_matmul_sweep --kernel crush_straw2 --sass`: the item loop
+# (0x0ae0-0x1880) 219, less the normalisation (0x1420-0x1470, 6; only
+# u < 0x7fff takes it) and nvcc's inline 32-bit divide (0x1650-0x1770,
+# 19; taken instead of the call), plus the 64-bit divide's subroutine
+# (0x1b00-0x1f10, 66).  Leaving the normalisation out (3 a draw on
+# average) more than covers the draws with u >= 65524 (under 0.02 %),
+# whose dividend fits 32 bits and which issue 52 instructions fewer.
+INSTRUCTIONS_PER_DRAW = 219 - 6 - 19 + 66
 
 # plugin, profile, erasure sets to decode (chunk positions)
 CONFIGS = [
@@ -414,22 +447,31 @@ def run_main_path(dev, rng) -> None:
 # -- phase 5: timing -------------------------------------------------------------
 
 
-def time_kernels(dev, inputs: dict, launches: dict) -> list[dict]:
+def bound_fn(dev, ops_per_clock_per_sm: int = INT32_OPS_PER_CLOCK_PER_SM):
+    """bound(nbytes, ops) -> (least ms, "bytes" or "operations"): the
+    larger of the bytes over the memory rate and the operations over SMs
+    x ops_per_clock_per_sm x the maximum SM clock."""
     import torch
-
-    from ceph_tpu_torch.ops import gf_cuda, gf_torch
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     max_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    int_ops_per_s = sms * INT32_OPS_PER_CLOCK_PER_SM * max_clock_hz
-    log(f"  int32 peak {int_ops_per_s:.4g} op/s ({sms} SMs x "
-        f"{INT32_OPS_PER_CLOCK_PER_SM} x {max_clock_hz / 1e6:.0f} MHz); "
+    int_ops_per_s = sms * ops_per_clock_per_sm * max_clock_hz
+    log(f"  operations peak {int_ops_per_s:.4g} op/s ({sms} SMs x "
+        f"{ops_per_clock_per_sm} x {max_clock_hz / 1e6:.0f} MHz); "
         f"memory {MEMORY_BYTES_PER_S:.4g} B/s")
 
     def bound(nbytes: int, ops: int):
         t_bytes = nbytes / MEMORY_BYTES_PER_S * 1e3
         t_ops = ops / int_ops_per_s * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    return bound
+
+
+def time_kernels(dev, inputs: dict, launches: dict) -> list[dict]:
+    from ceph_tpu_torch.ops import gf_cuda, gf_torch
+
+    bound = bound_fn(dev)
 
     rows = []
     rs, d_main, gf_err = inputs["gf"]
@@ -927,6 +969,275 @@ def run_osd_engine(dev, rng) -> dict:
     return launches["phase"]
 
 
+# -- phase 7: CRUSH bulk placement --------------------------------------------
+
+
+def crush_cases(rng):
+    """The phase-7 maps and rules: (name, map, rule, numrep, weights).
+
+    ``CrushMap.flat(64)`` with one firstn and one indep rule;
+    ``bench.py``'s chooseleaf_16x4 (16 hosts of 4 devices, chooseleaf
+    firstn over hosts); a production-sized map of 8 racks x 16 hosts x 12
+    devices (1536 OSDs, uneven device weights, 12 devices reweighted out
+    or down), chooseleaf firstn over hosts; and the chained LRC rule of
+    ``tests/test_crush_vec.py`` on its rack map (choose 2 racks, then
+    chooseleaf 2 hosts each: the rule's four positions)."""
+    from ceph_tpu_torch.crush.map import (
+        CRUSH_BUCKET_STRAW2, CRUSH_RULE_CHOOSE_INDEP, CRUSH_RULE_CHOOSELEAF_INDEP,
+        CRUSH_RULE_EMIT, CRUSH_RULE_TAKE, CrushMap, Rule)
+
+    cases = []
+    flat = CrushMap.flat(64)
+    cases.append(("flat_64 firstn", flat, flat.add_simple_rule(flat.root_id(), 0), 3, None))
+    cases.append(("flat_64 indep", flat,
+                  flat.add_simple_rule(flat.root_id(), 0, indep=True), 3, None))
+    h = CrushMap.hierarchical([list(range(4 * i, 4 * i + 4)) for i in range(16)])
+    cases.append(("chooseleaf_16x4", h, h.add_simple_rule(h.root_id("default"), 1), 3, None))
+
+    big = CrushMap()
+    big.type_names.update({1: "host", 2: "rack", 3: "root"})
+    dev_id, racks = 0, []
+    for rk in range(8):
+        hosts = []
+        for hs in range(16):
+            devs = list(range(dev_id, dev_id + 12))
+            dev_id += 12
+            ws = [int(w) for w in rng.integers(0x8000, 0x40000, size=12)]  # 0.5 to 4
+            hosts.append(big.make_bucket(CRUSH_BUCKET_STRAW2, 1, devs, ws,
+                                         name=f"rack{rk}-host{hs}"))
+        racks.append(big.make_bucket(CRUSH_BUCKET_STRAW2, 2, hosts,
+                                     [big.buckets[b].weight for b in hosts], name=f"rack{rk}"))
+    big.make_bucket(CRUSH_BUCKET_STRAW2, 3, racks, [big.buckets[b].weight for b in racks],
+                    name="default")
+    picked = rng.choice(dev_id, size=12, replace=False)
+    weights = big.get_weights(out=[int(d) for d in picked[:8]],
+                              reweight={int(d): 0.5 for d in picked[8:]})
+    cases.append(("racks_8x16x12 chooseleaf", big, big.add_simple_rule(big.root_id(), 1),
+                  3, weights))
+
+    lrc = CrushMap()  # tests/test_crush_vec.py _build_racks(): 2 racks x 3 hosts
+    lrc.type_names.update({1: "host", 2: "rack", 3: "root"})
+    lrng = np.random.default_rng(7)
+    dev_id, racks = 0, []
+    for rk in range(2):
+        hosts = []
+        for hs in range(3):
+            n = int(lrng.integers(2, 5))
+            devs = list(range(dev_id, dev_id + n))
+            dev_id += n
+            ws = [int(lrng.integers(1, 4)) * 0x10000 for _ in devs]
+            hosts.append(lrc.make_bucket(CRUSH_BUCKET_STRAW2, 1, devs, ws, name=f"h{rk}{hs}"))
+        racks.append(lrc.make_bucket(CRUSH_BUCKET_STRAW2, 2, hosts,
+                                     [lrc.buckets[b].weight for b in hosts], name=f"rack{rk}"))
+    lrc.make_bucket(CRUSH_BUCKET_STRAW2, 3, racks, [lrc.buckets[b].weight for b in racks],
+                    name="default")
+    rule = Rule(0, 3, 1, 4)
+    rule.step(CRUSH_RULE_TAKE, lrc.root_id()).step(CRUSH_RULE_CHOOSE_INDEP, 2, 2)
+    rule.step(CRUSH_RULE_CHOOSELEAF_INDEP, 2, 1).step(CRUSH_RULE_EMIT)
+    cases.append(("lrc chain 2 racks x 2 hosts", lrc, lrc.add_rule(rule), 4, None))
+    return cases
+
+
+def straw2_rows_for_checks(dev, rng, big):
+    """BucketRows for the kernel checks: 64 equal weights (flat_64's
+    row), half of 16 items at weight 0, one item, size 0, 64 weights
+    from 0x100 to 0x100000, all 8 weights 0; and the 1536-OSD map's
+    rows (8, 16 and 12 items)."""
+    import torch
+
+    from ceph_tpu_torch.crush.mapper_torch_hier import tables_for
+    from ceph_tpu_torch.ops import crush_torch
+
+    I = 64
+    items = np.full((6, I), 0x7FFFFFFF, dtype=np.int32)
+    weights = np.zeros((6, I), dtype=np.int32)
+    size = np.array([64, 16, 1, 0, 64, 8], dtype=np.int32)
+    for b, n in enumerate(size):
+        items[b, :n] = rng.permutation(4096)[:n]
+    weights[0, :64] = 0x10000
+    weights[1, :16] = np.where(np.arange(16) % 2, 0x10000, 0)
+    weights[2, 0] = 0x20000
+    weights[4, :64] = np.exp2(rng.uniform(8, 20, size=64)).astype(np.int32)
+    child_row = np.where(items < 0, 0, -1).astype(np.int32)
+    synthetic = crush_torch.BucketRows(
+        *(torch.from_numpy(a).to(dev) for a in
+          (items, weights, child_row, np.zeros_like(items), size)),
+        crush_torch.ln_table(dev))
+    return synthetic, tables_for(big, dev).rows
+
+
+def profile_tester(cmap, ruleno, numrep, weights) -> str:
+    """One ``CrushTester`` run at x = 0..CRUSH_X-1 under torch.profiler:
+    the wall time, the card's busy time (the sum of its kernels' spans;
+    one stream, so they do not overlap), the idle share, and the kernels
+    that took most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch.crush.tester import CrushTester
+
+    tester = CrushTester(cmap)
+    tester.min_x, tester.max_x = 0, CRUSH_X - 1
+    tester.weight = weights
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tester.test_rule(ruleno, numrep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels: dict[str, float] = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(kernels.values())
+    if not busy:
+        return f"{wall * 1e3:.3f} ms wall; device time not measured (no kernel events)"
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+    return (f"{wall * 1e3:.3f} ms wall, the card busy {busy:.3f} ms (idle "
+            f"{1 - busy / (wall * 1e3):.1%}); most device time: "
+            + "; ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in top))
+
+
+def run_crush(dev, rng) -> dict:
+    """Phase 7: the ``crush_straw2`` kernel against its plain version, the
+    main path through ``CrushTester`` at x = 0..CRUSH_X-1, and each case's
+    output against the scalar mapper and the plain route.  Returns the
+    kernel's row of the ``kernels`` line."""
+    import torch
+
+    from ceph_tpu_torch.crush import mapper, mapper_torch
+    from ceph_tpu_torch.crush.encoding import crush_to_dict
+    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.crush.tester import CrushTester
+    from ceph_tpu_torch.ops import crush_cuda, crush_torch, gf_cuda
+    from ceph_tpu_torch.tools import crushtool
+
+    cases = crush_cases(rng)
+    synthetic, big_rows = straw2_rows_for_checks(dev, rng, cases[3][1])
+
+    def lanes(n, hi):
+        return torch.from_numpy(rng.integers(0, hi, size=n, dtype=np.int64)
+                                .astype(np.uint32).view(np.int32)).to(dev)
+
+    # 1. the kernel against its plain version, bit-exact
+    flat_x = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
+    flat_rows = torch.zeros_like(flat_x)
+    flat_r = lanes(CRUSH_X, 1 << 31)
+    checks = [("flat_64 row, 1M lanes", synthetic, flat_x, flat_rows, flat_r)]
+    for n in (1, 31, CRUSH_X + 7):
+        checks.append((f"synthetic rows, X={n}", synthetic, lanes(n, 1 << 32),
+                       lanes(n, synthetic.items.shape[0]), lanes(n, 1 << 31)))
+        checks.append((f"1536-OSD map rows, X={n}", big_rows, lanes(n, 1 << 32),
+                       lanes(n, big_rows.items.shape[0]), lanes(n, 1 << 31)))
+    checks.append(("synthetic rows, r in [0, 64)", synthetic, lanes(4099, 1 << 32),
+                   lanes(4099, 6), lanes(4099, 64)))
+    err = 0
+    for what, T, x, rows, r in checks:
+        got = crush_cuda.crush_straw2(T, x, rows, r)
+        want = crush_torch.straw2_plain(T, x, rows, r)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("item", "child row", "child type", "empty"), got, want):
+            check_equal(f"crush_straw2 {what} {name}", g, w)
+        err = max(err, max_abs_err(got[0], want[0]))
+    log(f"  crush_straw2 bit-exact against straw2_plain on {len(checks)} shapes")
+    ms = time_cuda(lambda: crush_cuda.crush_straw2(synthetic, flat_x, flat_rows, flat_r), reps=30)
+    batched = time_cuda(lambda: crush_cuda.crush_straw2(synthetic, flat_x, flat_rows, flat_r),
+                        reps=10, batch=20)
+    plain_ms = time_cuda(lambda: crush_torch.straw2_plain(synthetic, flat_x, flat_rows, flat_r),
+                         reps=3, warmup=1)
+    draws = CRUSH_X * 64
+    b_ms, b_by = bound_fn(dev, ISSUE_LANES_PER_CLOCK_PER_SM)(
+        CRUSH_X * (3 * 4 + 3 * 4 + 1), draws * INSTRUCTIONS_PER_DRAW)
+    log(f"  crush_straw2 on flat_64's row over {CRUSH_X} lanes ({draws} draws): {ms} ms one "
+        f"launch a sample, {batched} ms in batches of 20, plain {plain_ms} ms; bound "
+        f"{b_ms} ms by {b_by} ({INSTRUCTIONS_PER_DRAW} SASS instructions a draw); "
+        f"{draws / batched / 1e6:.4g} G draws/s in batches, {b_ms / batched:.1%} of bound")
+
+    # 2. the main path: CrushTester (crushtool --test's engine) on each case
+    xs = np.arange(CRUSH_X, dtype=np.uint32)
+    reports = {}
+    gf_cuda.reset_launches()
+    for name, cmap, ruleno, numrep, weights in cases:
+        tester = CrushTester(cmap)
+        tester.min_x, tester.max_x = 0, CRUSH_X - 1
+        tester.weight = weights
+        for run in ("first", "second"):  # the first builds the map's tables
+            before = gf_cuda.launches["crush_straw2"]
+            rep = tester.test_rule(ruleno, numrep)
+            torch.cuda.synchronize()
+            launched = gf_cuda.launches["crush_straw2"] - before
+            if rep.backend != "vectorized" or launched == 0:
+                raise AssertionError(f"{name}: backend {rep.backend}, {launched} launches")
+            if run == "second" and (rep.device_counts, rep.bad_mappings) != (
+                    reports[name].device_counts, reports[name].bad_mappings):
+                raise AssertionError(f"{name}: a second run counted otherwise")
+            reports[name] = rep
+            log(f"  {name}, {run} run: CrushTester {rep.num_inputs} x numrep {numrep} in "
+                f"{rep.elapsed_seconds} s = {rep.num_inputs / rep.elapsed_seconds} mappings/s "
+                f"({rep.backend}; {launched} crush_straw2 launches; bad {rep.bad_mappings})")
+    for name, cmap, ruleno, numrep, weights in (cases[0], cases[3], cases[4]):
+        log(f"  {name}, a third run under torch.profiler: {profile_tester(cmap, ruleno, numrep, weights)}")
+    path = gf_cuda.BUILD_DIR / "crush_16x4.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(crush_to_dict(cases[2][1])))
+    argv = ["-i", str(path), "--test", "--rule", "0", "--num-rep", "3",
+            "--max-x", str(CRUSH_X - 1)]
+    log(f"  crushtool {' '.join(argv)}:")
+    if crushtool.main(argv) != 0:
+        raise AssertionError("crushtool --test failed")
+    torch.cuda.synchronize()
+    launches = gf_cuda.launches["crush_straw2"]
+    log(f"  crush_straw2 launches on the main path: {launches}")
+
+    # 3. each case's whole output: kernel route == plain route, sampled
+    # lanes == the scalar mapper, the tester's counts == its bincount
+    routed = crush_torch.straw2
+    for name, cmap, ruleno, numrep, weights in cases:
+        out = mapper_torch.vec_do_rule(cmap, ruleno, xs, numrep, weight=weights)
+        before = gf_cuda.launches["crush_straw2"]
+        crush_torch.straw2 = crush_torch.straw2_plain
+        try:
+            t0 = time.perf_counter()
+            plain = mapper_torch.vec_do_rule(cmap, ruleno, xs, numrep, weight=weights)
+            t_plain = time.perf_counter() - t0
+        finally:
+            crush_torch.straw2 = routed
+        if gf_cuda.launches["crush_straw2"] != before:
+            raise AssertionError(f"{name}: the plain route launched the kernel")
+        if out.shape != plain.shape or not np.array_equal(out, plain):
+            raise AssertionError(f"{name}: kernel route differs from the plain route")
+        sample = np.linspace(0, CRUSH_X - 1, CRUSH_SAMPLE).astype(np.int64)
+        ws = mapper.Workspace(cmap)
+        for x in sample:
+            want = mapper.crush_do_rule(cmap, ruleno, int(x), numrep, weight=weights,
+                                        workspace=ws)
+            row = np.full(out.shape[1], CRUSH_ITEM_NONE, dtype=np.int32)
+            row[:len(want)] = want
+            if not np.array_equal(out[x], row):
+                raise AssertionError(f"{name} x={x}: {list(out[x])} != scalar {want}")
+        t0 = time.perf_counter()
+        for x in range(1000):
+            mapper.crush_do_rule(cmap, ruleno, x, numrep, weight=weights, workspace=ws)
+        scalar_us = (time.perf_counter() - t0) / 1000 * 1e6
+        placed = out != CRUSH_ITEM_NONE
+        vals, counts = np.unique(out[placed], return_counts=True)
+        rep = reports[name]
+        if (rep.device_counts != {int(v): int(c) for v, c in zip(vals, counts)}
+                or rep.bad_mappings != int((placed.sum(axis=1) < out.shape[1]).sum())):
+            raise AssertionError(f"{name}: CrushTester counts differ from the output's")
+        log(f"  {name}: [{CRUSH_X}, {out.shape[1]}] kernel route == plain route "
+            f"({t_plain:.3f} s), {CRUSH_SAMPLE} lanes == scalar mapper, counts == "
+            f"bincount; scalar mapper {scalar_us} us a mapping")
+    return {
+        "name": "crush_straw2", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_straw2.cu",
+        "replaces": "ceph_tpu/crush/mapper_jax_hier.py:189 (_straw2_rows; "
+                    "straw2_choose_approx, ceph_tpu/crush/mapper_jax.py:280)",
+        "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "ceph_tpu_torch" / "__init__.py").exists():
@@ -973,8 +1284,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(gf_cuda.launches)
     log(f"  launches on the main path: {launches}")
-    for name, count in launches.items():
-        if count == 0:
+    for name in gf_cuda.EC_KERNELS:
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
 
     log("== 5. timing")
@@ -984,6 +1295,9 @@ def main() -> int:
 
     log("== 6. OSD EC engine")
     osd_launches = run_osd_engine(dev, rng)
+
+    log("== 7. CRUSH bulk placement")
+    rows.append(run_crush(dev, rng))
     for row in rows:
         row["launches_osd_engine"] = osd_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

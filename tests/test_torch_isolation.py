@@ -6,7 +6,9 @@
 - Without CUDA, the default entry points and any request for ``cuda``
   raise; nothing lands on the CPU unless asked to.
 - A CPU tensor takes the plain version and leaves the kernels' launch
-  counts unchanged; a kernel wrapper refuses a CPU tensor.
+  counts unchanged; a kernel wrapper refuses a CPU tensor.  This holds
+  for the CRUSH draw (``crush_straw2``) and its entry points
+  (``vec_do_rule``, ``CrushTester``, ``crushtool --test``) too.
 """
 
 import pathlib
@@ -19,9 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from ceph_tpu_torch.crush import mapper_torch
+from ceph_tpu_torch.crush.map import CrushMap
+from ceph_tpu_torch.crush.mapper_torch_hier import tables_for
+from ceph_tpu_torch.crush.tester import CrushTester
 from ceph_tpu_torch.device import DeviceUnavailableError, resolve
 from ceph_tpu_torch.models import registry
-from ceph_tpu_torch.ops import gf_cuda, gf_torch, matrices as mx
+from ceph_tpu_torch.ops import crush_cuda, crush_torch, gf_cuda, gf_torch, matrices as mx
+from ceph_tpu_torch.tools import crushtool
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -48,7 +55,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     print(" ".join(names))
 """)
 
-# every module of the OSD EC engine slice, in its two new subpackages too
+# every module of the OSD EC engine slice, in its two new subpackages too,
+# and of the CRUSH slice
 _SLICE_MODULES = {
     "ceph_tpu_torch.common.perf_counters", "ceph_tpu_torch.common.tracing",
     "ceph_tpu_torch.utils.arch", "ceph_tpu_torch.utils.native",
@@ -57,6 +65,13 @@ _SLICE_MODULES = {
     "ceph_tpu_torch.osd.ec_perf", "ceph_tpu_torch.osd.ec_util",
     "ceph_tpu_torch.osd.ec_transaction", "ceph_tpu_torch.osd.ec_failover",
     "ceph_tpu_torch.osd.ec_dispatch",
+    "ceph_tpu_torch.crush", "ceph_tpu_torch.crush.ln_tables",
+    "ceph_tpu_torch.crush.hashes", "ceph_tpu_torch.crush.map",
+    "ceph_tpu_torch.crush.mapper", "ceph_tpu_torch.crush.encoding",
+    "ceph_tpu_torch.crush.compiler", "ceph_tpu_torch.crush.mapper_torch",
+    "ceph_tpu_torch.crush.mapper_torch_hier", "ceph_tpu_torch.crush.tester",
+    "ceph_tpu_torch.ops.crush_torch", "ceph_tpu_torch.ops.crush_cuda",
+    "ceph_tpu_torch.tools.crushtool",
 }
 
 
@@ -72,7 +87,7 @@ def test_port_imports_without_jax_or_ceph_tpu():
     )
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 33  # every module of the package
+    assert len(names) >= 46  # every module of the package
     assert _SLICE_MODULES <= names, _SLICE_MODULES - names
 
 
@@ -106,6 +121,45 @@ def test_cpu_tensor_takes_plain_version_and_kernel_refuses_it():
         gf_cuda.gf_matmul(table, d32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         gf_cuda.bitmatrix_xor(gf_cuda.bitmatrix_table(bm, torch.device("cpu")), d32)
+    assert gf_cuda.launches == before
+
+
+def test_crush_entry_points_raise_without_cuda_unless_asked_for_the_cpu(tmp_path, capsys):
+    _needs_no_cuda()
+    cmap = CrushMap.flat(8)
+    rule = cmap.add_simple_rule(cmap.root_id(), 0)
+    xs = np.arange(16, dtype=np.uint32)
+    with pytest.raises(DeviceUnavailableError):
+        mapper_torch.vec_do_rule(cmap, rule, xs, 3)
+    with pytest.raises(DeviceUnavailableError):
+        mapper_torch.vec_rule_stats(cmap, rule, xs, 3, device="cuda")
+    with pytest.raises(DeviceUnavailableError):
+        CrushTester(cmap)
+    path = tmp_path / "map.json"
+    assert crushtool.main(["--build", "8", "-o", str(path)]) == 0
+    argv = ["-i", str(path), "--test", "--num-rep", "3", "--max-x", "15"]
+    with pytest.raises(DeviceUnavailableError):
+        crushtool.main(argv)
+    assert mapper_torch.vec_do_rule(cmap, rule, xs, 3, device="cpu").shape == (16, 3)
+    assert CrushTester(cmap, device="cpu").device.type == "cpu"
+    assert crushtool.main(argv + ["--device", "cpu"]) == 0
+    assert "vectorized" in capsys.readouterr().out
+
+
+def test_crush_cpu_lanes_take_plain_version_and_kernel_refuses_them():
+    cmap = CrushMap.flat(8)
+    T = tables_for(cmap, torch.device("cpu")).rows
+    x = torch.arange(64, dtype=torch.int32)
+    rows, r = torch.zeros_like(x), torch.ones_like(x)
+    before = dict(gf_cuda.launches)
+    for got, want in zip(crush_torch.straw2(T, x, rows, r),
+                         crush_torch.straw2_plain(T, x, rows, r)):
+        assert torch.equal(got, want)
+    rule = cmap.add_simple_rule(cmap.root_id(), 0)
+    mapper_torch.vec_rule_stats(cmap, rule, np.arange(64), 3, device="cpu")
+    assert gf_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        crush_cuda.crush_straw2(T, x, rows, r)
     assert gf_cuda.launches == before
 
 
