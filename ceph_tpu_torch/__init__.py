@@ -1,5 +1,6 @@
-"""ceph_tpu_torch — the erasure-code engine and CRUSH bulk placement of
-``ceph_tpu`` on PyTorch and CUDA (NVIDIA Hopper, sm_90a).
+"""ceph_tpu_torch — the erasure-code engine, CRUSH bulk placement, the
+cluster map and churn planning of ``ceph_tpu`` on PyTorch and CUDA
+(NVIDIA Hopper, sm_90a).
 
 It mirrors ``ceph_tpu``'s layout and names so each module's counterpart
 is easy to find:
@@ -16,13 +17,19 @@ is easy to find:
 - ``osd``: the OSD's EC engine: stripe math (``ec_util``), write plans
   (``ec_transaction``), the cross-op microbatch dispatcher
   (``ec_dispatch``), its engine supervisor (``ec_failover``) and the
-  ``ec`` perf family (``ec_perf``);
+  ``ec`` perf family (``ec_perf``); the cluster map (``osdmap``) and
+  the device-planned churn (``churn``);
+- ``accel``, ``store``, ``mon``: the fleet map the OSDMap carries
+  (``accelmap``), the key-value store (``kv``) and the monitor's map
+  store (``store``);
 - ``common``: perf counters and the trace context the dispatcher reads;
-- ``utils``: byte buffers and copy accounting, and the native host
-  engine (``csrc/host/ec_cpu.cc``, built with ``g++``);
+- ``utils``: byte buffers and copy accounting, the native host engine
+  (``csrc/host/ec_cpu.cc``, built with ``g++``) and the object-name
+  hashes (``str_hash``);
 - ``ops.profiler`` / ``ops.device_trace``: the kernel profiler and the
   launch flight recorder;
-- ``tools``: ``ec_benchmark``, ``ec_non_regression`` and ``crushtool``.
+- ``tools``: ``ec_benchmark``, ``ec_non_regression``, ``crushtool`` and
+  ``osdmaptool``.
 
 It imports torch, numpy and the standard library, never jax and never
 ``ceph_tpu``.

@@ -38,7 +38,9 @@ Hierarchies (chooseleaf, chained LRC rules) route to
 
 Entry points take ``device=None`` (the card; ``"cpu"`` on request) and
 return host numpy, as the reference's do; :func:`vec_rule_stats` brings
-back only the counts.
+back only the counts.  :func:`vec_do_rule_lanes` takes lanes already on
+a device and leaves its result there, for callers that go on computing
+on the device (the churn planner).
 """
 
 from __future__ import annotations
@@ -272,15 +274,33 @@ def vec_do_rule(cmap: CrushMap, ruleno: int, xs, result_max: int,
         return _vec_do_rule(cmap, ruleno, xs_np, result_max, weight, resolve(device))
 
 
-def _vec_do_rule(cmap, ruleno, xs, result_max, weight, device) -> np.ndarray:
-    """Batched crush_do_rule over ``xs`` (reference:mapper.c:854 x-loop
-    collapsed to one set of lanes).
+def vec_do_rule_lanes(cmap: CrushMap, ruleno: int, x: torch.Tensor,
+                      result_max: int, weight=None) -> torch.Tensor:
+    """:func:`vec_do_rule` on int32 lanes ``x`` (the uint32 inputs'
+    bits) already on a device: the [X, numrep] int32 result stays on
+    that device.  Profiled under the same ``crush_vec_rule`` tap."""
+    shape = tuple(x.shape)
+    with profiler().timed(
+        "crush_vec_rule", (ruleno, shape, result_max),
+        nbytes=x.numel() * 4, shape=shape,
+    ):
+        return _do_rule_lanes(cmap, ruleno, x, result_max, weight)
 
-    Returns [X, numrep] int32 (CRUSH_ITEM_NONE holes); bit-identical to
-    the scalar mapper for supported maps (check with :func:`supports`).
-    Hierarchical maps (chooseleaf included) route to the multi-level
-    engine in mapper_torch_hier.py."""
-    out = _engine(cmap, ruleno, lanes_of(xs, device), result_max, weight)
+
+def _do_rule_lanes(cmap, ruleno, x, result_max, weight) -> torch.Tensor:
+    """Batched crush_do_rule over lanes ``x`` (reference:mapper.c:854
+    x-loop collapsed to one set of lanes).
+
+    Returns [X, numrep] int32 on ``x``'s device (CRUSH_ITEM_NONE holes);
+    bit-identical to the scalar mapper for supported maps (check with
+    :func:`supports`).  Hierarchical maps (chooseleaf included) route to
+    the multi-level engine in mapper_torch_hier.py."""
+    out = _engine(cmap, ruleno, x, result_max, weight)
     if out is None:
-        return np.zeros((len(xs), 0), dtype=np.int32)
-    return out.cpu().numpy()
+        return torch.zeros((x.shape[0], 0), dtype=_LANE, device=x.device)
+    return out
+
+
+def _vec_do_rule(cmap, ruleno, xs, result_max, weight, device) -> np.ndarray:
+    """:func:`_do_rule_lanes` from host inputs to host numpy."""
+    return _do_rule_lanes(cmap, ruleno, lanes_of(xs, device), result_max, weight).cpu().numpy()

@@ -84,9 +84,8 @@ _CHOOSE_OPS = (
 
 
 class MapTables:
-    """Padded int32 bucket tables on one device (host-built, cached on
-    the map object per device; invalidated by identity, so
-    mutate-and-reuse maps should drop ``cmap._torch_tables``)."""
+    """Padded int32 bucket tables on one device (host-built; cached on
+    the map object per device by :func:`tables_for`)."""
 
     def __init__(self, cmap: CrushMap, device: torch.device):
         bids = sorted(cmap.buckets)
@@ -145,14 +144,25 @@ class MapTables:
         return max((d(b) for b in bids), default=0)
 
 
+def _layout(cmap: CrushMap) -> tuple:
+    """Everything :class:`MapTables` reads from the map's buckets."""
+    return tuple(
+        (bid, b.type, b.alg, tuple(b.items), tuple(getattr(b, "item_weights", ())))
+        for bid, b in sorted(cmap.buckets.items()))
+
+
 def tables_for(cmap: CrushMap, device: torch.device) -> MapTables:
+    """The map's tables on ``device``, rebuilt when its buckets changed
+    since they were made (a host added, device-class shadow trees
+    populated): the cache holds the bucket layout it was built from."""
     cache = getattr(cmap, "_torch_tables", None)
     if cache is None:
         cache = cmap._torch_tables = {}
-    t = cache.get(device)
-    if t is None:
-        t = cache[device] = MapTables(cmap, device)
-    return t
+    layout = _layout(cmap)
+    hit = cache.get(device)
+    if hit is None or hit[0] != layout:
+        hit = cache[device] = (layout, MapTables(cmap, device))
+    return hit[1]
 
 
 def lanes_of(xs, device: torch.device) -> torch.Tensor:

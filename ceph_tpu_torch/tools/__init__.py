@@ -1,1 +1,1 @@
-"""Operator CLIs: ec_benchmark, ec_non_regression, crushtool."""
+"""Operator CLIs: ec_benchmark, ec_non_regression, crushtool, osdmaptool."""

@@ -74,9 +74,27 @@ Phases, each fatal on any mismatch or exception:
    case's whole output through
    the kernel equals the same call with the draw routed to its plain
    version, 4096 evenly spread lanes equal the scalar mapper, and the
-   tester's counts equal a count of the output.
+   tester's counts equal a count of the output;
+8. the cluster map and device-planned churn: ``synthetic_map`` of
+   10,240 OSDs (640 hosts of 16) with a replicated pool (size 3,
+   chooseleaf firstn over hosts) and an ISA k=8 m=3 pool (chooseleaf
+   indep over hosts), both at 65536 PGs; three churn events from it
+   (one host down; the same host down and out; a host of 16 added),
+   each copied through the wire dict by ``apply_churn``; then, with the
+   launch counts set to 0, the main path: ``ChurnPlanner`` on the card
+   maps each pool twice and plans each event.  Every mapping and plan
+   must come from the device path, ``crush_straw2`` must have launched,
+   every plan must remap PGs, and for the down and out events only PGs
+   that held the host's OSDs before or hold them after may remap.  Then
+   the whole pre-churn and out-event mappings with the draw routed to
+   its plain version equal the kernel's, 64 PGs a pool of each of the
+   four maps equal the scalar ``pg_to_up_acting_osds``, and one
+   ``map_all`` runs under ``torch.profiler`` (the card's busy and idle
+   time, ``crush_straw2``'s share).
 
-Output: the card line, a ``{"kernels": [...]}`` line, and last
+Output: the card line, a ``{"kernels": [...]}`` line (each kernel's
+``launches`` on its main path, phase 4 or 7, with ``launches_osd_engine``
+from phase 6 and ``launches_churn`` from phase 8 beside it), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -144,6 +162,16 @@ ISSUE_LANES_PER_CLOCK_PER_SM = 128
 # average) more than covers the draws with u >= 65524 (under 0.02 %),
 # whose dividend fits 32 bits and which issue 52 instructions fewer.
 INSTRUCTIONS_PER_DRAW = 219 - 6 - 19 + 66
+
+# phase 8: a 10k-OSD cluster (tests/test_churn.py:200's shape, 640 hosts
+# of 16) whose two pools sit at Ceph's mon_max_pool_pg_num default, 65536
+# PGs each: 917,504 PG shards, about 90 an OSD (mon_target_pg_per_osd's
+# default is 100); PGs a pool of each map checked against the scalar walk
+CHURN_OSDS = 10_240
+CHURN_OSDS_PER_HOST = 16
+CHURN_PG_NUM = 65536
+CHURN_EC = {"plugin": "isa", "k": "8", "m": "3"}
+CHURN_SAMPLES = 64
 
 # plugin, profile, erasure sets to decode (chunk positions)
 CONFIGS = [
@@ -1238,6 +1266,181 @@ def run_crush(dev, rng) -> dict:
     }
 
 
+# -- phase 8: the cluster map and device-planned churn ---------------------------
+
+
+def device_busy(prof, kernel: str) -> tuple[float, float]:
+    """(the card's busy ms, the share of it in kernels named ``kernel``)
+    from a torch.profiler run: the sum of the card's kernel spans (one
+    stream, so they do not overlap)."""
+    busy = mine = 0.0
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            ms = e.time_range.elapsed_us() / 1e3
+            busy += ms
+            mine += ms if kernel in e.name else 0.0
+    return busy, (mine / busy if busy else 0.0)
+
+
+def run_churn(dev, rng) -> dict:
+    """Phase 8 (see the module docstring).  Returns the kernels' launches
+    on the phase's main path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch.crush import mapper_torch
+    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.crush.mapper_torch_hier import MapTables, tables_for
+    from ceph_tpu_torch.osd.churn import ChurnPlanner, apply_churn, synthetic_map
+    from ceph_tpu_torch.osd.osdmap import OSDMap, PGid
+    from ceph_tpu_torch.ops import crush_torch, gf_cuda
+
+    t0 = time.perf_counter()
+    m = synthetic_map(CHURN_OSDS, CHURN_OSDS_PER_HOST, replicated=(3, CHURN_PG_NUM),
+                      ec=(CHURN_EC, CHURN_PG_NUM))
+    log(f"  synthetic_map: {CHURN_OSDS} OSDs, {len(m.crush.buckets)} buckets, pools "
+        + ", ".join(f"{p.id} {p.name} size {p.size} pg_num {p.pg_num}" for p in m.pools.values())
+        + f" in {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    OSDMap.from_dict(m.to_dict())
+    log(f"  the wire round trip apply_churn makes (to_dict, from_dict): "
+        f"{(time.perf_counter() - t0) * 1e3} ms")
+    first = int(rng.integers(CHURN_OSDS // CHURN_OSDS_PER_HOST)) * CHURN_OSDS_PER_HOST
+    host = list(range(first, first + CHURN_OSDS_PER_HOST))
+    events = [(f"1. host of osd.{first}-{host[-1]} down", host, {"kill": host}),
+              ("2. the same host down and out", host, {"kill": host, "out": host}),
+              (f"3. a host of {CHURN_OSDS_PER_HOST} added",
+               list(range(CHURN_OSDS, CHURN_OSDS + CHURN_OSDS_PER_HOST)),
+               {"add": CHURN_OSDS_PER_HOST})]
+    posts = [apply_churn(m, **kw) for _name, _osds, kw in events]
+
+    t0 = time.perf_counter()
+    MapTables(m.crush, dev)
+    torch.cuda.synchronize()
+    log(f"  bucket tables of the map on the card: {(time.perf_counter() - t0) * 1e3} ms")
+
+    # the main path, from one reset
+    gf_cuda.reset_launches()
+    planner = ChurnPlanner(m)
+    pre = {}
+    for pool in m.pools.values():
+        times = []
+        for _run in ("first", "second"):  # the first also builds the map's tables
+            t0 = time.perf_counter()
+            pre[pool.id] = planner.map_pool(m, pool)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if not pre[pool.id].device:
+            raise AssertionError(f"pool {pool.name}: mapped off the device path")
+        log(f"  map_pool {pool.name} ({pool.pg_num} PGs x {pool.size}): first "
+            f"{times[0] * 1e3} ms, second {times[1] * 1e3} ms = "
+            f"{pool.pg_num / times[1]} PGs mapped/s")
+    for pool in m.pools.values():  # host steps of a map_pool, each alone
+        ruleno = m.crush.find_rule(pool.crush_ruleset, pool.type, pool.size)
+        t0 = time.perf_counter()
+        mapper_torch.supports(m.crush, ruleno)
+        t1 = time.perf_counter()
+        tables_for(m.crush, dev)
+        t2 = time.perf_counter()
+        log(f"  map_pool {pool.name} host steps: the supports walk {(t1 - t0) * 1e3} ms, "
+            f"the tables' layout check {(t2 - t1) * 1e3} ms")
+    plans = []
+    for (name, osds, kw), post in zip(events, posts):
+        t0 = time.perf_counter()
+        plan = planner.plan(post)
+        t_plan = time.perf_counter() - t0
+        post_maps = planner.map_all(post)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planner.diff(pre, post_maps, post)
+        t_diff = time.perf_counter() - t0
+        s = plan.summary()
+        if not plan.device or not all(mp.device for mp in post_maps.values()):
+            raise AssertionError(f"event {name}: planned off the device path")
+        if not s["pgs_remapped"]:
+            raise AssertionError(f"event {name}: no PG remapped")
+        plans.append((plan, post_maps))
+        log(f"  event {name}: plan {t_plan} s (the row diff and the host loop over "
+            f"its rows {t_diff * 1e3} ms), {s['pgs_remapped']} PGs remapped, "
+            f"{s['moved_shards']} shards moved, max scan fan-in {s['max_fan_in']}")
+    torch.cuda.synchronize()
+    launches = dict(gf_cuda.launches)
+    log(f"  launches on the main path: {launches}")
+    if launches["crush_straw2"] == 0:
+        raise AssertionError("crush_straw2 was not launched in phase 8")
+
+    # CRUSH moves only what the churned OSDs held, or now hold
+    for (name, osds, _kw), (plan, post_maps) in zip(events[:2], plans[:2]):
+        churned = torch.tensor(osds, dtype=torch.int32, device=dev)
+        for pid, entries in plan.remapped.items():
+            touched = (torch.isin(pre[pid].acting, churned).any(dim=1)
+                       | torch.isin(post_maps[pid].acting, churned).any(dim=1))
+            seeds = torch.tensor([e["seed"] for e in entries], device=dev)
+            if not bool(touched[seeds].all()):
+                raise AssertionError(f"event {name}: pool {pid} remapped a PG that "
+                                     "neither held nor holds a churned OSD")
+            log(f"  event {name}, pool {pid}: {len(entries)} remapped of "
+                f"{int(touched.sum())} PGs that held or hold the host's OSDs")
+
+    # the whole pre-churn and out-event mappings: kernel route == plain route
+    routed = crush_torch.straw2
+    for name, mp, kernel_maps in (("pre-churn", m, pre), ("event 2", posts[1], plans[1][1])):
+        crush_torch.straw2 = crush_torch.straw2_plain
+        try:
+            t0 = time.perf_counter()
+            plain = planner.map_all(mp)
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0
+        finally:
+            crush_torch.straw2 = routed
+        for pid, got in kernel_maps.items():
+            check_equal(f"{name} pool {pid} acting", got.acting, plain[pid].acting)
+            check_equal(f"{name} pool {pid} primary", got.primary, plain[pid].primary)
+        log(f"  {name}: every PG of both pools, kernel route == plain route "
+            f"(plain route {t_plain} s)")
+
+    # sampled PGs of each map == the scalar walk
+    scalar_s, walked = 0.0, 0
+    for name, mp, maps in [("pre-churn", m, pre)] + [
+            (ev[0], post, pm) for ev, post, (_plan, pm) in zip(events, posts, plans)]:
+        for pid, mapping in maps.items():
+            seeds = rng.choice(mp.pools[pid].pg_num, size=CHURN_SAMPLES, replace=False)
+            idx = torch.as_tensor(seeds, device=dev)
+            rows = mapping.acting.index_select(0, idx).tolist()
+            prims = mapping.primary.index_select(0, idx).tolist()
+            width = mapping.acting.shape[1]
+            for seed, row, prim in zip(seeds, rows, prims):
+                t0 = time.perf_counter()
+                _u, _upp, acting, primary = mp.pg_to_up_acting_osds(PGid(pid, int(seed)))
+                scalar_s += time.perf_counter() - t0
+                walked += 1
+                want = (list(acting[:width]) + [CRUSH_ITEM_NONE] * width)[:width]
+                if row != want or prim != primary:
+                    raise AssertionError(f"{name} pg {pid}.{int(seed):x}: card {row} "
+                                         f"primary {prim} != scalar {want} primary {primary}")
+    log(f"  {walked} sampled PGs == the scalar pg_to_up_acting_osds; the scalar walk "
+        f"{scalar_s / walked * 1e3} ms a PG")
+    if planner.verify_oracle(m, samples=8, rng=rng) != 16:
+        raise AssertionError("verify_oracle did not check both pools")
+
+    # one map_all under torch.profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        planner.map_all(m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, share = device_busy(prof, "crush_straw2")
+    if busy:
+        log(f"  map_all under torch.profiler: {wall * 1e3} ms wall, the card busy "
+            f"{busy} ms (idle {1 - busy / (wall * 1e3):.1%}), crush_straw2 {share:.1%} "
+            "of the busy time")
+    else:
+        log(f"  map_all under torch.profiler: {wall * 1e3} ms wall; device time not "
+            "measured (no kernel events)")
+    return launches
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "ceph_tpu_torch" / "__init__.py").exists():
@@ -1298,8 +1501,12 @@ def main() -> int:
 
     log("== 7. CRUSH bulk placement")
     rows.append(run_crush(dev, rng))
+
+    log("== 8. cluster map and churn planning")
+    churn_launches = run_churn(dev, rng)
     for row in rows:
         row["launches_osd_engine"] = osd_launches[row["name"]]
+        row["launches_churn"] = churn_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

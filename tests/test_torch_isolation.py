@@ -8,7 +8,9 @@
 - A CPU tensor takes the plain version and leaves the kernels' launch
   counts unchanged; a kernel wrapper refuses a CPU tensor.  This holds
   for the CRUSH draw (``crush_straw2``) and its entry points
-  (``vec_do_rule``, ``CrushTester``, ``crushtool --test``) too.
+  (``vec_do_rule``, ``CrushTester``, ``crushtool --test``) too, and for
+  the churn planner (``ChurnPlanner``), whose device path raises on a
+  fault instead of falling back to the scalar walk.
 """
 
 import pathlib
@@ -27,6 +29,7 @@ from ceph_tpu_torch.crush.mapper_torch_hier import tables_for
 from ceph_tpu_torch.crush.tester import CrushTester
 from ceph_tpu_torch.device import DeviceUnavailableError, resolve
 from ceph_tpu_torch.models import registry
+from ceph_tpu_torch.osd.churn import ChurnPlanner, apply_churn, synthetic_map
 from ceph_tpu_torch.ops import crush_cuda, crush_torch, gf_cuda, gf_torch, matrices as mx
 from ceph_tpu_torch.tools import crushtool
 
@@ -72,6 +75,12 @@ _SLICE_MODULES = {
     "ceph_tpu_torch.crush.mapper_torch_hier", "ceph_tpu_torch.crush.tester",
     "ceph_tpu_torch.ops.crush_torch", "ceph_tpu_torch.ops.crush_cuda",
     "ceph_tpu_torch.tools.crushtool",
+    # the cluster map slice
+    "ceph_tpu_torch.utils.str_hash", "ceph_tpu_torch.accel",
+    "ceph_tpu_torch.accel.accelmap", "ceph_tpu_torch.osd.osdmap",
+    "ceph_tpu_torch.store", "ceph_tpu_torch.store.kv", "ceph_tpu_torch.mon",
+    "ceph_tpu_torch.mon.store", "ceph_tpu_torch.tools.osdmaptool",
+    "ceph_tpu_torch.osd.churn",
 }
 
 
@@ -87,7 +96,7 @@ def test_port_imports_without_jax_or_ceph_tpu():
     )
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 46  # every module of the package
+    assert len(names) >= 56  # every module of the package
     assert _SLICE_MODULES <= names, _SLICE_MODULES - names
 
 
@@ -161,6 +170,48 @@ def test_crush_cpu_lanes_take_plain_version_and_kernel_refuses_them():
     with pytest.raises(ValueError, match="CUDA tensors"):
         crush_cuda.crush_straw2(T, x, rows, r)
     assert gf_cuda.launches == before
+
+
+def test_churn_planner_raises_without_cuda_unless_asked_for_the_cpu():
+    _needs_no_cuda()
+    m = synthetic_map(32, 8, replicated=(3, 16), ec=None)
+    with pytest.raises(DeviceUnavailableError):
+        ChurnPlanner(m)
+    with pytest.raises(DeviceUnavailableError):
+        ChurnPlanner(m, device="cuda")
+    assert ChurnPlanner(m, device="cpu").device.type == "cpu"
+
+
+def test_cpu_churn_plan_leaves_the_kernel_count_unchanged():
+    m = synthetic_map(64, 8, replicated=(3, 32), ec=({"plugin": "isa", "k": "2", "m": "1"}, 32))
+    before = dict(gf_cuda.launches)
+    plan = ChurnPlanner(m, device="cpu").plan(apply_churn(m, kill=range(8)))
+    assert plan.device and plan.remapped
+    assert gf_cuda.launches == before
+
+
+def test_a_fault_in_the_device_path_raises(monkeypatch):
+    """No silent fallback: an error inside ``supports`` or the batched
+    mapper reaches the caller of ``map_pool``, ``plan`` and
+    ``verify_oracle``; it never turns into the scalar walk."""
+    m = synthetic_map(32, 8, replicated=(3, 16), ec=None)
+    pool = next(iter(m.pools.values()))
+    planner = ChurnPlanner(m, device="cpu")
+
+    def broken(*_args, **_kw):
+        raise RuntimeError("injected fault")
+
+    monkeypatch.setattr(mapper_torch, "supports", broken)
+    for call in (lambda: planner.map_pool(m, pool), lambda: planner.plan(m),
+                 lambda: planner.verify_oracle()):
+        with pytest.raises(RuntimeError, match="injected fault"):
+            call()
+    monkeypatch.undo()
+    monkeypatch.setattr(mapper_torch, "_engine", broken)
+    with pytest.raises(RuntimeError, match="injected fault"):
+        planner.map_pool(m, pool)
+    monkeypatch.undo()
+    assert planner.map_pool(m, pool).device
 
 
 def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
