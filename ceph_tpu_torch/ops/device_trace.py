@@ -46,11 +46,18 @@ class FlightRecorder:
 
     def end(self, token: int, *, device_wall_s: float | None = None,
             served: str | None = None, error: str | None = None,
-            origin: str | None = None) -> None:
+            origin: str | None = None,
+            remote_served: str | None = None,
+            remote_queue_wait_s: float | None = None) -> None:
         """``origin`` names the lane whose FAULT caused a
-        fallback-served batch ("device" = local device trip) — without
-        it an operator reading ``dump_launch_history`` cannot tell which
-        fault domain the replay answered for."""
+        fallback-served batch ("remote" = accelerator/network trip,
+        "device" = local device trip) — without it an operator reading
+        ``dump_launch_history`` cannot tell which fault domain the
+        replay answered for.  ``remote_served`` names the engine the
+        ACCELERATOR served a remote-lane batch from (device /
+        native_direct / fallback — the reply piggybacks it), so the
+        client-side record shows whether the shared device, or its host
+        fallback, actually produced the bytes."""
         with self._lock:
             rec = self._inflight.pop(token, None)
             if rec is None:
@@ -63,6 +70,13 @@ class FlightRecorder:
                 rec["error"] = error
             if origin is not None:
                 rec["origin"] = origin
+            if remote_served is not None:
+                rec["remote_served"] = remote_served
+            if remote_queue_wait_s is not None:
+                # accel-side coalesce wait (reply piggyback): keeps
+                # the queue-wait-vs-device split honest for remote
+                # launches
+                rec["remote_queue_wait_s"] = round(remote_queue_wait_s, 6)
             self._ring.append(rec)
 
     @staticmethod

@@ -2,10 +2,9 @@
 in-flight ops.
 
 Counterpart of ``ceph_tpu/osd/ec_dispatch.py``, with its device lane,
-native-direct lane and fallback lanes.  The mesh lane (multi-device EC)
-and the remote lane (the shared accelerator service) are not ported
-yet: ``mesh_engine`` and ``remote`` stay in the signature and must be
-None.
+native-direct lane, fallback lanes and remote lane.  The mesh lane
+(multi-device EC) is not ported yet: ``mesh_engine`` stays in the
+signature and must be None.
 
 The OSD's per-object batching (``ec_util.encode`` runs all stripes of
 ONE op in one device call) stops at the op boundary: N concurrent 64 KiB
@@ -63,6 +62,20 @@ osd/ec_failover):
   device call can never silently freeze the OSD.  Fault hooks
   ``inject_engine_failure`` / ``inject_launch_hang`` prove all of it.
 
+A fifth mechanism is the **remote lane** (the shared accelerator
+service, ``accel``):
+
+- given an :class:`~ceph_tpu_torch.accel.client.AccelClient` as
+  ``remote`` (mode prefer|require), coalesced batches ship to the
+  accelerator daemon over the messenger — payloads as borrowed frame
+  views, QoS class + geometry in the fields, trace id on the frame
+  header — unpadded: the accelerator re-coalesces across CLIENT OSDs
+  through its own dispatcher, which owns the bucketing.  The remote is
+  its own fault domain: beacons gate routing (a TRIPPED or saturated
+  remote sheds with no timeout chain), its faults never advance the
+  local breaker, and a remote fatal replays on the LOCAL host fallback
+  bit-identically with ``origin=remote`` in the flight record.
+
 Observability: batch/op/flush-reason/pad counters plus a
 ``dispatch_batch_size_histogram`` on the ``ec`` subsystem
 (``osd.ec_perf.create_ec_perf``), the ``engine_state`` gauge and
@@ -103,8 +116,6 @@ logger = logging.getLogger("ceph_tpu_torch.ec_dispatch")
 _NOT_PORTED = {
     "mesh_engine": "the mesh lane waits for ROADMAP Queue A item 8 "
                    "(multi-device EC)",
-    "remote": "the remote lane waits for ROADMAP Queue A item 9 "
-              "(the shared accelerator service)",
 }
 
 
@@ -149,14 +160,14 @@ class _Batch:
                  "lane", "klass")
 
     def __init__(self, kind: str, codec, sinfo: ec_util.StripeInfo,
-                 klass: str = "client"):
+                 lane: str = "device", klass: str = "client"):
         self.kind = kind  # "enc" | "dec"
         self.codec = codec
         self.sinfo = sinfo
         self.ops: list[_Op] = []
         self.stripes = 0
         self.timer: asyncio.TimerHandle | None = None
-        self.lane = "device"  # the only batching lane ported
+        self.lane = lane  # "device" | "remote"
         self.klass = klass  # QoS traffic class (classes never mix)
 
 
@@ -174,11 +185,23 @@ class ECDispatcher:
                  supervisor=None, launch_deadline: float = 0.0,
                  hb_handle=None, mesh_engine=None,
                  launch_history: int = 64, remote=None):
-        for name, value in (("mesh_engine", mesh_engine),
-                            ("remote", remote)):
-            if value is not None:
-                raise ValueError(f"{name} is not supported: {_NOT_PORTED[name]}")
+        if mesh_engine is not None:
+            raise ValueError("mesh_engine is not supported: "
+                             f"{_NOT_PORTED['mesh_engine']}")
+        if remote is not None and not all(
+                callable(getattr(remote, a, None))
+                for a in ("routes", "run_batch", "note_failure", "dump")):
+            raise ValueError("remote must be a remote-lane client "
+                             "(accel.client.AccelClient)")
         self._perf = perf
+        # the remote accelerator lane (accel/client.AccelClient; None =
+        # local lanes only): coalesced batches ship to a shared
+        # accelerator daemon over the messenger instead of launching on
+        # this process's device.  The remote has ITS OWN fault domain —
+        # its faults never touch the local supervisor's breaker (a
+        # network trip must not bench the local device), and a failed
+        # remote batch replays on the LOCAL fallback engine
+        self._remote = remote
         # the OSD's QoS scheduler (duck-typed: an async
         # ``pace(klass, cost)``; None standalone): BACKGROUND stripes
         # (klass != "client") pace through it before entering a batch
@@ -245,7 +268,8 @@ class ECDispatcher:
         }
         # padded S -> launches, per lane (O(log max_S) rows per lane
         # by construction; the mesh table stays empty until that lane
-        # is ported)
+        # is ported; the remote lane ships unpadded — the accelerator
+        # owns the bucketing for its own launches — so it has no table)
         self._buckets_seen: dict[str, dict[int, int]] = {
             "device": {}, "mesh": {},
         }
@@ -290,6 +314,17 @@ class ECDispatcher:
             # open a batch nobody will ever flush (and the executor
             # would refuse the launch)
             return self._inline_encode_fn()(sinfo, codec, buf)
+        # lane selection: the remote accelerator (an explicit operator
+        # opt-in via osd_ec_accel_mode) outranks every local lane — its
+        # whole point is taking the device math off this host; its OWN
+        # breaker beacon gates it, not the local supervisor.  Below it,
+        # the native lane outranks the device lane on a CPU codec
+        if self._remote is not None and self._remote.routes(codec):
+            key = ("enc", "remote", None, klass, id(codec),
+                   sinfo.stripe_width, sinfo.chunk_size)
+            return await self._submit(key, "enc", codec, sinfo, buf,
+                                      stripes, lane="remote",
+                                      klass=klass, client=client)
         if ec_util.native_encode_path(sinfo, codec):
             # no launch overhead to amortize on the C engine — keep
             # per-op (cache-resident) calls, just off the loop
@@ -339,6 +374,20 @@ class ECDispatcher:
         if self._stopping:
             # see encode(): stop() may have won the race while pacing
             return self._inline_decode_fn()(sinfo, codec, arrs)
+        k = codec.get_data_chunk_count()
+        missing = any(r not in arrs for r in range(k))
+        # remote lane first (see encode()) — but only when rows are
+        # MISSING: an all-rows-present concat does no device math, and
+        # shipping its payload across the wire to do a host transform
+        # there would be pure network waste
+        if (missing and self._remote is not None
+                and self._remote.routes(codec)):
+            present = tuple(sorted(arrs))
+            key = ("dec", "remote", None, klass, id(codec),
+                   sinfo.stripe_width, sinfo.chunk_size, present)
+            return await self._submit(key, "dec", codec, sinfo, arrs,
+                                      stripes, lane="remote",
+                                      klass=klass, client=client)
         if ec_util.native_decode_path(codec, shard_len):
             return await self._run_native_direct(
                 ec_util.decode_concat, sinfo, codec, arrs, "decode",
@@ -438,6 +487,8 @@ class ECDispatcher:
                 for b in self._open.values()
             ],
             "mesh_lane": False,
+            **({"remote": self._remote.dump()}
+               if self._remote is not None else {}),
             "totals": {
                 **{k: v for k, v in self._totals.items() if k != "flush"},
                 "flush_reasons": dict(self._totals["flush"]),
@@ -525,7 +576,8 @@ class ECDispatcher:
                                 client=client)
 
     async def _submit(self, key: tuple, kind: str, codec, sinfo,
-                      payload, stripes: int, *, klass: str = "client",
+                      payload, stripes: int, *, lane: str = "device",
+                      klass: str = "client",
                       client: str | None = None):
         loop = asyncio.get_running_loop()
         b = self._open.get(key)
@@ -539,7 +591,8 @@ class ECDispatcher:
             self._flush(key, "size")
             b = None
         if b is None:
-            b = self._open[key] = _Batch(kind, codec, sinfo, klass=klass)
+            b = self._open[key] = _Batch(kind, codec, sinfo, lane=lane,
+                                         klass=klass)
             delay = self.window if self._last_ops > 1 else 0.0
             b.timer = loop.call_later(delay, self._flush, key, "window")
         fut = loop.create_future()
@@ -610,21 +663,33 @@ class ECDispatcher:
     async def _run_batch_inner(self, b: _Batch, ops: list[_Op],
                                reason: str, flight: int) -> None:
         origin = None
+        extra: dict = {}
         try:
-            results, pad, seconds = await self._bounded_device_call(
-                f"{b.kind} launch ({b.stripes} stripes)",
-                self._run_sync, b, ops,
-            )
-            if self._supervisor is not None:
+            results, pad, seconds, extra = await self._launch(b, ops)
+            if b.lane != "remote" and self._supervisor is not None:
+                # a remote success says nothing about the LOCAL device
+                # — only local launches close the local breaker
                 self._supervisor.record_success()
         except Exception as e:
             # the fault fork (osd/ec_failover): FATAL errors — a CUDA
             # error, OOM, a kernel build or launch failure, a blown
             # launch deadline — replay the whole batch on the host
             # fallback engine (bit-identical), so no waiter ever sees a
-            # device error; data-shape errors surface to every waiter
+            # device error; data-shape errors surface to every waiter.
+            # REMOTE batches fork the same way, but against their own
+            # fault domain: the accelerator's failure never advances
+            # the local supervisor's breaker (a network trip must not
+            # bench a healthy local device), and a remote fatal always
+            # replays locally — accelerator death mid-batch is
+            # classified like device death
             sup = self._supervisor
-            if isinstance(e, LaunchDeadlineExceeded):
+            if b.lane == "remote":
+                from ..accel.client import AccelDataError
+
+                replayable = not isinstance(e, AccelDataError)
+                if replayable:
+                    self._remote.note_failure(e)
+            elif isinstance(e, LaunchDeadlineExceeded):
                 # record_timeout already advanced the breaker (and
                 # counted the timeout) inside _bounded_device_call —
                 # re-recording here would double-count one wedge as a
@@ -644,9 +709,11 @@ class ECDispatcher:
                         op.fut.set_exception(e)
                 self.flight.end(flight, served="error", error=repr(e))
                 return
-            self._last_trip = (b.kind, b.sinfo, b.codec)
+            if b.lane != "remote":
+                self._last_trip = (b.kind, b.sinfo, b.codec)
             try:
                 results, pad, seconds = await self._replay(b, ops)
+                extra = {}
             except Exception as e2:
                 # the fallback failed too (a data error the device
                 # masked, or a host fault): surface THAT error — it is
@@ -670,11 +737,44 @@ class ECDispatcher:
             if not op.fut.done():
                 op.fut.set_result(res)
         self.flight.end(flight, device_wall_s=seconds, served=served,
-                        error=flight_error, origin=origin)
+                        error=flight_error, origin=origin, **extra)
         try:
             self._note_batch(b, ops, reason, pad, seconds, served)
         except Exception:  # swallow-ok: observability is best-effort by contract
             pass
+
+    async def _launch(self, b: _Batch, ops: list[_Op]):
+        """Returns ``(results, pad, seconds, extra)`` — ``extra`` is
+        flight-record enrichment (the remote lane reports which engine
+        the ACCELERATOR served from; local lanes have nothing to
+        add)."""
+        if b.lane == "remote":
+            # the remote lane is messenger I/O, not a worker-pool
+            # device call: the AccelClient bounds it with its own RPC
+            # deadline (osd_ec_accel_deadline) and raises
+            # AccelUnavailable/AccelServiceError for the fork above —
+            # no watchdog pin (nothing can wedge a thread here)
+            return await self._run_remote(b, ops)
+        results, pad, seconds = await self._bounded_device_call(
+            f"{b.kind} launch ({b.stripes} stripes)",
+            self._run_sync, b, ops,
+        )
+        return results, pad, seconds, {}
+
+    async def _run_remote(self, b: _Batch, ops: list[_Op]):
+        """One remote-lane batch: ``remote.run_batch`` ships it
+        unpadded and answers with the accelerator's evidence, which
+        enriches this launch's flight record."""
+        results, pad, seconds, info = \
+            await self._remote.run_batch(b, ops)
+        extra = {}
+        if info.get("served"):
+            extra["remote_served"] = info["served"]
+        if info.get("queue_wait_s"):
+            # the accel-side coalesce wait (reply piggyback): the
+            # honest queue-wait-vs-device split for a REMOTE launch
+            extra["remote_queue_wait_s"] = float(info["queue_wait_s"])
+        return results, pad, seconds, extra
 
     async def _bounded_device_call(self, label: str, fn, *args):
         """One device call in the worker pool, bounded by
@@ -866,9 +966,12 @@ class ECDispatcher:
             lt["stripes"] += stripes
             lt["pad_stripes"] += pad
             lt["pad_bytes"] += pad * b.sinfo.stripe_width
-            sp = stripes + pad
-            lb = self._buckets_seen[served]
-            lb[sp] = lb.get(sp, 0) + 1
+            if served in self._buckets_seen:
+                # the remote lane ships unpadded (the accelerator owns
+                # the bucketing), so only local lanes keep a table
+                sp = stripes + pad
+                lb = self._buckets_seen[served]
+                lb[sp] = lb.get(sp, 0) + 1
         if len({op.client for op in ops if op.client}) > 1:
             # ops from more than one client shared this launch
             t["cross_client_batches"] += 1
@@ -887,8 +990,8 @@ class ECDispatcher:
         )
         pec.observe("dispatch_occupancy", occupancy)
         pec.hist("dispatch_batch_size_histogram", len(ops))
-        # the device lane's occupancy/pad/batch-size split (a
-        # fallback replay is counted by failovers/replayed_ops)
+        # the per-lane occupancy/pad/batch-size split (a fallback
+        # replay is counted by failovers/replayed_ops)
         if served == "device":
             pec.inc("dispatch_batches_device")
             pec.inc("dispatch_ops_device", len(ops))
@@ -898,6 +1001,17 @@ class ECDispatcher:
                         pad * b.sinfo.stripe_width)
             pec.observe("dispatch_occupancy_device", occupancy)
             pec.hist("dispatch_batch_size_device_histogram", len(ops))
+        elif served == "remote":
+            pec.inc("dispatch_batches_remote")
+            pec.inc("dispatch_ops_remote", len(ops))
+            pec.observe("dispatch_occupancy_remote", occupancy)
+            pec.hist("dispatch_batch_size_remote_histogram", len(ops))
+            # device wall time belongs to the ACCELERATOR's ec family
+            # (it reports its own); this OSD's client-side view —
+            # batches/bytes/rtt — is accounted by the AccelClient.
+            # Feeding the remote's seconds into the local encode/decode
+            # gauges would paint phantom local device throughput.
+            return
         # wall-time accounting from this LAUNCH's own time (logical
         # bytes, pad excluded), whichever engine served it: the
         # daemon's op-level timer includes queue wait and batch

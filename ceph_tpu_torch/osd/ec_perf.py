@@ -1,10 +1,15 @@
 """The ``ec`` perf-counter family, registered in one place.
 
-Counterpart of ``create_ec_perf`` in ``ceph_tpu/osd/ec_perf.py``: the
-same keys, so that the dispatcher and the supervisor find every key they
-mutate and a ``perf dump`` of either package has the same shape.  The
-``accel`` families of that module come with the shared accelerator
-service.
+Counterpart of ``create_ec_perf``, ``create_accel_client_perf`` and
+``create_accel_service_perf`` in ``ceph_tpu/osd/ec_perf.py``: the same
+keys, so that the dispatcher, the supervisor, the accelerator client and
+the accelerator daemon find every key they mutate and a ``perf dump`` of
+either package has the same shape.  The ``accel`` family has two halves:
+the OSD's client-side view of its remote, and the accelerator daemon's
+service-side totals (distinct key names, so the shared subsystem name
+never collides).  The client half's fleet keys (``remote_failover_next``,
+``locality_hits``/``misses``, ``fleet_*``) and the per-target
+``accel@<id>`` family wait for the fleet router.
 """
 
 from __future__ import annotations
@@ -156,3 +161,59 @@ def create_ec_perf(perf):
                     "device launches abandoned at "
                     "osd_ec_launch_deadline (wedged device call)")
     return pec
+
+
+def create_accel_client_perf(perf):
+    """The OSD-side half of the ``accel`` family: this daemon's view of
+    its remote accelerator (the AccelClient mutates these)."""
+    pacc = perf.create("accel")
+    pacc.add_counter("remote_batches",
+                     "coalesced EC batches shipped to the accelerator")
+    pacc.add_counter("remote_ops",
+                     "member ops served by remote batches")
+    pacc.add_counter("remote_bytes",
+                     "payload bytes shipped to the accelerator")
+    pacc.add_counter("remote_failovers",
+                     "remote batches replayed on the LOCAL fallback "
+                     "engine after an accelerator fault (network trip "
+                     "— see dump_launch_history origin=remote)")
+    pacc.add_counter("remote_data_errors",
+                     "remote batches answered with a data-shape error "
+                     "(surfaced to the caller, not replayed)")
+    pacc.add_counter("remote_routed_away",
+                     "requests that skipped the remote lane because "
+                     "the last beacon read TRIPPED or saturated")
+    pacc.add_gauge("remote_unreachable",
+                   "1 while the accelerator is marked unreachable "
+                   "(connect/deadline faults; feeds the mgr's "
+                   "ACCEL_UNREACHABLE health check)")
+    pacc.add_gauge("remote_state",
+                   "accelerator engine breaker state from the last "
+                   "beacon/reply (0 healthy .. 3 probing)")
+    pacc.add_gauge("remote_queue_depth",
+                   "accelerator queue depth from the last "
+                   "beacon/reply")
+    pacc.add_time_avg("remote_rtt",
+                      "remote batch round-trip wall time")
+    return pacc
+
+
+def create_accel_service_perf(perf):
+    """The accelerator-daemon half of the ``accel`` family: the shared
+    service's own request totals."""
+    pacc = perf.create("accel")
+    pacc.add_counter("rpc_encode", "encode batches received")
+    pacc.add_counter("rpc_decode", "decode batches received")
+    pacc.add_counter("rpc_errors",
+                     "requests answered with an error reply")
+    pacc.add_counter("rpc_bytes_in", "payload bytes received")
+    pacc.add_counter("rpc_bytes_out", "result bytes sent")
+    pacc.add_counter("beacons", "engine-state beacons broadcast")
+    pacc.add_counter("cross_client_batches",
+                     "launches that coalesced ops from more than one "
+                     "client OSD (the shared-occupancy win)")
+    pacc.add_gauge("queue_depth", "requests currently in service")
+    pacc.add_gauge("clients", "client OSDs seen in the last 30s")
+    pacc.add_time_avg("service_time",
+                      "request service wall time (queue + launch)")
+    return pacc

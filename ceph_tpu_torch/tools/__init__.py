@@ -1,1 +1,2 @@
-"""Operator CLIs: ec_benchmark, ec_non_regression, crushtool, osdmaptool."""
+"""Operator CLIs: ec_benchmark, ec_non_regression, crushtool, osdmaptool,
+and the daemon launcher (``daemon``, the accel role)."""

@@ -2,8 +2,9 @@
 (``ceph_tpu_torch/csrc/host/ec_cpu.cc``).
 
 Counterpart of ``ceph_tpu/utils/native.py``, cut to what the OSD EC
-stack calls: :func:`encode` (GF matmul of flat rows), :func:`encode_stripes`
-(the fused stripe-layout encode) and :func:`crc32c`.  The library is built with ``g++`` at first
+stack and the messenger call: :func:`encode` (GF matmul of flat rows),
+:func:`encode_stripes` (the fused stripe-layout encode), :func:`crc32c`
+and :func:`crc32c_view` (the per-frame crc of ``msg.message``).  The library is built with ``g++`` at first
 use into ``ceph_tpu_torch/build/``, named by a hash of the source and the
 flags, so a second process in the same tree loads it without a rebuild.
 Nothing here runs at import.
@@ -192,6 +193,53 @@ def crc32c(crc: int, data) -> int:
     if buf.size == 0:
         return crc & 0xFFFFFFFF
     return int(lib().crc32c_sw(crc & 0xFFFFFFFF, _u8ptr(buf), buf.size))
+
+
+# lean per-frame crc entry (msg/message.py hot path): the generic
+# crc32c above pays call scaffolding per invocation — as_u8 conversion,
+# the lib() lock, and numpy's .ctypes pointer build — which dwarfs the
+# actual crc of a sub-KiB header.  This binding passes c_void_p, so
+# bytes go pointer-direct and writable buffers resolve via a
+# zero-length from_buffer cast.
+_crc_raw = None
+_U8_0 = ctypes.c_uint8 * 0
+
+
+def _crc_fn():
+    global _crc_raw
+    if _crc_raw is None:  # benign race: both winners bind the same fn
+        L = lib()
+        _crc_raw = ctypes.CFUNCTYPE(
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p,
+            ctypes.c_int64,
+        )(("crc32c_sw", L))
+    return _crc_raw
+
+
+def crc32c_view(crc: int, buf, n: int | None = None) -> int:
+    """crc32c over any bytes-like without conversion scaffolding:
+    ``bytes`` pass their pointer directly, writable buffers
+    (bytearray / slab memoryview) via ``from_buffer``, read-only
+    views through a numpy pointer.  ``n`` overrides the length (crc a
+    strict prefix of ``buf`` without slicing it — the decode path's
+    body-minus-trailer case).  Bit-identical to :func:`crc32c`."""
+    fn = _crc_fn()
+    crc &= 0xFFFFFFFF
+    if type(buf) is bytes:
+        ln = len(buf) if n is None else n
+        return fn(crc, buf, ln) if ln else crc
+    mv = buf if isinstance(buf, memoryview) else memoryview(buf)
+    if mv.ndim != 1 or mv.itemsize != 1:
+        mv = mv.cast("B")
+    ln = mv.nbytes if n is None else n
+    if not ln:
+        return crc
+    try:
+        base = _U8_0.from_buffer(mv)
+        return fn(crc, ctypes.addressof(base), ln)
+    except TypeError:  # read-only view: numpy exposes the pointer
+        a = np.frombuffer(mv, np.uint8)
+        return fn(crc, a.__array_interface__["data"][0], ln)
 
 
 def crc32c_table(crc: int, data) -> int:

@@ -90,11 +90,35 @@ Phases, each fatal on any mismatch or exception:
    its plain version equal the kernel's, 64 PGs a pool of each of the
    four maps equal the scalar ``pg_to_up_acting_osds``, and one
    ``map_all`` runs under ``torch.profiler`` (the card's busy and idle
-   time, ``crush_straw2``'s share).
+   time, ``crush_straw2``'s share);
+9. the shared accelerator service, with the launch counts set to 0 just
+   before it: one ``AccelDaemon("accel.0")`` on the card with
+   ``Config()``'s dispatcher settings, bound to 127.0.0.1, fed by 4
+   simulated OSDs (each an ``AsyncMessenger``, an
+   ``AccelClient(mode="require")`` and an ``ECDispatcher`` with that
+   remote lane and its own ``EngineSupervisor``; codecs on the CPU, so
+   every card launch is the daemon's): phase 6's pool A (64 writes, 16
+   from each OSD, then reads with shard 0 and with {1, 5, 9} lost) and
+   pool B (64 writes, a four-erasure read), and a jerasure reed_sol_van
+   k=8 m=3 w=16 pool (8 objects from 2 OSDs), every byte against the
+   host engine and the originals, each step's GB/s beside phase 6's.
+   Every OSD's ops must take the remote lane, none the device lane; the
+   daemon serves none off the card; ``gf_matmul`` launches in pool A and
+   ``bitmatrix_xor`` in pool B; at least one launch is shared by two
+   OSDs; every remote flight record names the daemon's ``served`` engine
+   and device wall; the daemon's breaker ends HEALTHY.  It prints the
+   per-request split (the OSD's round trip, the daemon's queue wait and
+   device wall).  Then the daemon is stopped with 8 pool-A ops from 2
+   OSDs in flight: every waiter must get the same bytes from its OSD's
+   local replay (``origin=remote``) with the OSD's breaker untouched.
+   Last, the messenger alone carries pool A encode's frames (no erasure
+   code) once.  The phase runs under
+   ``asyncio.wait_for``.
 
 Output: the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on its main path, phase 4 or 7, with ``launches_osd_engine``
-from phase 6 and ``launches_churn`` from phase 8 beside it), and last
+from phase 6, ``launches_churn`` from phase 8 and
+``launches_accel_service`` from phase 9 beside it), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -707,7 +731,7 @@ def _pool_line(name: str, before: dict, after: dict) -> str:
 def _check_shards(what: str, got: dict, want: dict) -> None:
     if sorted(got) != sorted(want) or any(
             not np.array_equal(np.asarray(got[s]), np.asarray(want[s])) for s in want):
-        raise AssertionError(f"{what}: shards differ from ec_util.encode_fallback")
+        raise AssertionError(f"{what}: shards differ from the host engine's")
 
 
 def time_launch_breakdown(dev, codec, sinfo, objs) -> dict:
@@ -796,9 +820,11 @@ def time_launch_breakdown(dev, codec, sinfo, objs) -> dict:
     return {"parts_ms": parts, "whole_encode_ms": whole_ms}
 
 
-def run_osd_engine(dev, rng) -> dict:
-    """Phase 6 (see the module docstring).  Returns the kernels' launch
-    counts over the whole drive, counted from one reset at its start:
+def run_osd_engine(dev, rng, figures: dict | None = None) -> dict:
+    """Phase 6 (see the module docstring).  ``figures``, when given, gets
+    each step's GB/s line (phase 9 prints them beside its own).  Returns
+    the kernels' launch counts over the whole drive, counted from one
+    reset at its start:
     both pool-A gathers and its decodes, the one-worker run, pool B, the
     canary's probes and the batch after re-promotion (the injected batch
     launches nothing; the launch breakdown's timing launches come after
@@ -841,6 +867,8 @@ def run_osd_engine(dev, rng) -> dict:
     pec = create_ec_perf(perf)
     sup = EngineSupervisor(enabled=True, perf=pec, probe_interval=OSD_PROBE_INTERVAL_S)
     launches = {}
+    if figures is None:
+        figures = {}
 
     async def main():
         disp = ECDispatcher(
@@ -889,6 +917,7 @@ def run_osd_engine(dev, rng) -> dict:
         del again
         log(f"  pool A encode, {OSD_OPS} x 4 MiB, bytes == encode_fallback in both: first "
             f"gather {gbps(enc_s)}, second {gbps(enc2_s)} (host clock)")
+        figures["pool A encode"] = gbps(enc2_s)
         for lost in ((0,), (1, 5, 9)):
             outs, dec_s = await timed(
                 disp.decode_concat(sinfo_a, codec_a,
@@ -899,6 +928,7 @@ def run_osd_engine(dev, rng) -> dict:
                     raise AssertionError(f"pool A op {i}: decode_concat of {lost} differs")
             log(f"  pool A decode_concat with shards {list(lost)} lost, bytes == written: "
                 f"{gbps(dec_s)} (host clock)")
+            figures[f"pool A decode {list(lost)}"] = gbps(dec_s)
         log(_pool_line("pool A", before, disp.dump()))
         launches["pool A"] = kernel_counts("pool A", start)
         shard_eng = profiler().dump()["engines"]["ec_shards"]
@@ -940,6 +970,8 @@ def run_osd_engine(dev, rng) -> dict:
         log(f"  pool B encode, {OSD_OPS} objects, bytes == encode_fallback: {gbps(enc_s)}; "
             f"decode_concat with shards {list(lost)} lost, bytes == written: "
             f"{gbps(dec_s)} (host clock, object bytes before padding)")
+        figures["pool B encode"] = gbps(enc_s)
+        figures[f"pool B decode {list(lost)}"] = gbps(dec_s)
         log(_pool_line("pool B", before, disp.dump()))
         launches["pool B"] = kernel_counts("pool B", since)
         del shards_b, outs
@@ -1441,6 +1473,324 @@ def run_churn(dev, rng) -> dict:
     return launches
 
 
+# -- phase 9: the shared accelerator service --------------------------------------
+
+# 4 simulated OSDs feed one accelerator daemon over loopback TCP
+ACCEL_OSDS = 4
+# pool C: the w=16 case, 8 objects from 2 OSDs
+POOL_W16 = ("jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3", "w": "16"},
+            4096)
+W16_OPS = 8
+W16_OSDS = 2
+# the failover step: one pool-A batch of 8 ops from 2 OSDs, in flight
+# when the daemon stops; the daemon's launches are held this long so
+# that the stop lands mid-batch
+FAILOVER_OPS = 8
+FAILOVER_OSDS = 2
+FAILOVER_HOLD_S = 1.0
+# the whole phase runs under this limit, so a hang fails the script
+ACCEL_PHASE_LIMIT_S = 600.0
+
+
+async def time_wire(objs, sinfo) -> None:
+    """The messenger alone, with the bytes of the service's pool-A encode
+    step and no erasure code (``tools/wire_profile.py``, which also
+    profiles such a round): one round over connections already up.
+    Object bytes / wall of the gather, on the host clock."""
+    from ceph_tpu_torch.tools.wire_profile import wire_round
+
+    per_rpc = OSD_MAX_STRIPES // (len(objs[0]) // sinfo.stripe_width)
+    s, what = await wire_round(objs, per_rpc, ACCEL_OSDS)
+    nbytes = sum(len(o) for o in objs)
+    log(f"  the messenger alone: pool A encode's frames ({what}): "
+        f"{nbytes / s / 1e9:.3f} GB/s of object bytes ({s * 1e3:.1f} ms, host clock)")
+
+
+def run_accel_service(dev, rng, in_process: dict | None = None) -> dict:
+    """Phase 9 (see the module docstring).  ``in_process`` holds phase
+    6's GB/s of the same steps, printed beside the service's.  Returns
+    the kernels' launch counts over the phase's main path (every launch
+    is the daemon's: the OSDs' codecs live on the CPU)."""
+    import asyncio
+
+    import torch
+
+    from ceph_tpu_torch.accel import AccelClient, AccelDaemon
+    from ceph_tpu_torch.common import Config, PerfCountersCollection
+    from ceph_tpu_torch.models import registry
+    from ceph_tpu_torch.msg import AsyncMessenger, Dispatcher
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.ec_dispatch import ECDispatcher
+    from ceph_tpu_torch.osd.ec_failover import HEALTHY, STATE_NAMES, EngineSupervisor
+    from ceph_tpu_torch.osd.ec_perf import create_accel_client_perf, create_ec_perf
+
+    cfg = Config(env="")
+
+    class Osd(Dispatcher):
+        """A simulated OSD: messenger, accelerator client, dispatcher
+        with the remote lane (``require``), its own breaker, and codecs
+        on the CPU."""
+
+        def __init__(self, i: int, addr: str):
+            self.name = f"osd.{i}"
+            self.messenger = AsyncMessenger(self.name, self)
+            self.messenger.apply_config(cfg)
+            perf = PerfCountersCollection()
+            self.pacc = create_accel_client_perf(perf)
+            self.client = AccelClient(
+                self.messenger, addr=addr, mode="require",
+                deadline=cfg.osd_ec_accel_deadline,
+                retry_interval=cfg.osd_ec_accel_retry_interval,
+                stale_interval=cfg.osd_ec_accel_stale_interval, perf=self.pacc)
+            self.sup = EngineSupervisor(enabled=True, perf=create_ec_perf(perf),
+                                        probe_interval=OSD_PROBE_INTERVAL_S)
+            self.dispatch = ECDispatcher(
+                window=cfg.osd_ec_dispatch_window,
+                max_stripes=cfg.osd_ec_dispatch_max_stripes,
+                bucket=cfg.osd_ec_dispatch_bucket, max_workers=OSD_WORKERS,
+                supervisor=self.sup, launch_deadline=cfg.osd_ec_launch_deadline,
+                remote=self.client)
+
+        async def ms_dispatch(self, conn, msg):
+            self.client.handle(msg, conn)
+
+        def ms_handle_reset(self, conn):
+            self.client.on_reset(conn)
+
+        async def stop(self):
+            await self.dispatch.stop()
+            await self.messenger.shutdown()
+
+    def cpu_pool(spec):
+        # the wire profile names its plugin, as a pool's EC profile does:
+        # the daemon rebuilds the codec from the profile alone
+        plugin, profile, chunk = spec
+        codec = registry.instance().factory(plugin, dict(profile, plugin=plugin),
+                                            device="cpu")
+        return codec, ec_util.StripeInfo(codec.get_data_chunk_count() * chunk, chunk)
+
+    codec_a, sinfo_a = cpu_pool(POOL_A)
+    codec_b, sinfo_b = cpu_pool(POOL_B)
+    codec_c, sinfo_c = cpu_pool(POOL_W16)
+    objs = [rng.integers(0, 256, size=OSD_OBJECT_SIZE, dtype=np.uint8)
+            for _ in range(OSD_OPS)]
+    objs_b = [np.frombuffer(sinfo_b.pad_to_stripe(o.tobytes()), dtype=np.uint8)
+              for o in objs]
+    total_bytes = OSD_OPS * OSD_OBJECT_SIZE
+    # the port's host engine on the CPU codecs: the bytes every op must get
+    want_a = [ec_util.encode(sinfo_a, codec_a, o) for o in objs]
+    want_b = [ec_util.encode(sinfo_b, codec_b, o) for o in objs_b]
+    want_c = [ec_util.encode(sinfo_c, codec_c, o) for o in objs[:W16_OPS]]
+    launches = {}
+    split = {"queue_wait": [], "device_wall": []}
+
+    async def main():
+        acc = AccelDaemon("accel.0", device=None)
+        if acc.device != dev:
+            raise AssertionError(f"accelerator daemon on {acc.device}, expected {dev}")
+        await acc.start("127.0.0.1", 0)
+        osds = [Osd(i, acc.addr) for i in range(ACCEL_OSDS)]
+        log(f"  accel.0 on {acc.device} at {acc.addr}; {ACCEL_OSDS} OSDs (mode require, "
+            f"codecs on the CPU); window {cfg.osd_ec_dispatch_window} s, "
+            f"{cfg.osd_ec_dispatch_max_stripes} stripes")
+
+        def snapshot():
+            torch.cuda.synchronize()
+            return dict(gf_cuda.launches)
+
+        def counts(name, since):
+            got = {n: c - since[n] for n, c in snapshot().items()}
+            log(f"  daemon launches in {name}: {got}")
+            return got
+
+        def owner(i, n_osds=ACCEL_OSDS):
+            return osds[i % n_osds]
+
+        async def timed(coros):
+            t0 = time.perf_counter()
+            out = await asyncio.gather(*coros)
+            return out, time.perf_counter() - t0
+
+        def gbps(nbytes, seconds):
+            return nbytes / seconds / 1e9
+
+        seen = {}
+
+        def new_records(o):
+            """The OSD's flight records since the last call (the ring
+            holds its last 64 launches, more than one step makes)."""
+            recs = [r for r in o.dispatch.flight.dump()["launches"]
+                    if r["seq"] > seen.get(o.name, 0)]
+            if recs:
+                seen[o.name] = recs[-1]["seq"]
+            return recs
+
+        def note_records(what):
+            """Every remote flight record an OSD kept for this step names
+            the daemon's served engine and device wall; gather the
+            per-request split."""
+            for o in osds:
+                for r in new_records(o):
+                    if r.get("lane") != "remote" or r.get("served") != "remote" \
+                            or r.get("remote_served") != "device" \
+                            or r.get("device_wall_s") is None:
+                        raise AssertionError(f"{what}: {o.name} flight record {r}")
+                    split["device_wall"].append(r["device_wall_s"])
+                    split["queue_wait"].append(r.get("remote_queue_wait_s") or 0.0)
+
+        def step(name, nbytes, seconds):
+            log(f"  {name}: {gbps(nbytes, seconds):.3f} GB/s ({seconds * 1e3:.1f} ms, "
+                f"host clock, through the service); "
+                f"in process (phase 6): {(in_process or {}).get(name, 'not run')}")
+
+        gf_cuda.reset_launches()
+        start = snapshot()
+
+        # pool A: 64 writes, 16 from each OSD, then two degraded reads
+        got, s = await timed(owner(i).dispatch.encode(sinfo_a, codec_a, o)
+                             for i, o in enumerate(objs))
+        for i, g in enumerate(got):
+            _check_shards(f"service pool A op {i}", g, want_a[i])
+        step("pool A encode", total_bytes, s)
+        note_records("pool A encode")
+        for lost in ((0,), (1, 5, 9)):
+            outs, s = await timed(
+                owner(i).dispatch.decode_concat(
+                    sinfo_a, codec_a, {k: v for k, v in sh.items() if k not in lost})
+                for i, sh in enumerate(got))
+            for i, (o, out) in enumerate(zip(objs, outs)):
+                if bytes(out) != o.tobytes():
+                    raise AssertionError(f"service pool A op {i}: decode of {lost} differs")
+            step(f"pool A decode {list(lost)}", total_bytes, s)
+            note_records(f"pool A decode {lost}")
+        del got, outs
+        launches["pool A"] = counts("pool A", start)
+        if launches["pool A"]["gf_matmul"] == 0:
+            raise AssertionError("gf_matmul was not launched by the daemon in pool A")
+
+        # pool B: 64 padded objects, 16 from each OSD, a four-erasure read
+        since = snapshot()
+        got, s = await timed(owner(i).dispatch.encode(sinfo_b, codec_b, o)
+                             for i, o in enumerate(objs_b))
+        for i, g in enumerate(got):
+            _check_shards(f"service pool B op {i}", g, want_b[i])
+        step("pool B encode", total_bytes, s)
+        note_records("pool B encode")
+        lost = (0, 4, 11, 13)
+        outs, s = await timed(
+            owner(i).dispatch.decode_concat(
+                sinfo_b, codec_b, {k: v for k, v in sh.items() if k not in lost})
+            for i, sh in enumerate(got))
+        for i, (o, out) in enumerate(zip(objs_b, outs)):
+            if bytes(out) != o.tobytes():
+                raise AssertionError(f"service pool B op {i}: decode of {lost} differs")
+        step(f"pool B decode {list(lost)}", total_bytes, s)
+        note_records("pool B decode")
+        del got, outs
+        launches["pool B"] = counts("pool B", since)
+        if launches["pool B"]["bitmatrix_xor"] == 0:
+            raise AssertionError("bitmatrix_xor was not launched by the daemon in pool B")
+
+        # w=16: 8 objects from 2 OSDs, encode and a one-erasure read
+        since = snapshot()
+        got, _ = await timed(owner(i, W16_OSDS).dispatch.encode(sinfo_c, codec_c, o)
+                             for i, o in enumerate(objs[:W16_OPS]))
+        for i, g in enumerate(got):
+            _check_shards(f"service w=16 op {i}", g, want_c[i])
+        outs, _ = await timed(
+            owner(i, W16_OSDS).dispatch.decode_concat(
+                sinfo_c, codec_c, {k: v for k, v in sh.items() if k != 2})
+            for i, sh in enumerate(got))
+        for i, (o, out) in enumerate(zip(objs, outs)):
+            if bytes(out) != o.tobytes():
+                raise AssertionError(f"service w=16 op {i}: decode differs")
+        note_records("w=16")
+        launches["w=16"] = counts("the w=16 case", since)
+        if launches["w=16"]["gf_matmul"] == 0:
+            raise AssertionError("gf_matmul was not launched by the daemon in the w=16 case")
+        launches["phase"] = counts("the main path", start)
+        log(f"  w=16 (jerasure reed_sol_van k=8 m=3): {W16_OPS} objects from {W16_OSDS} "
+            "OSDs, encode and decode bytes == host engine")
+
+        # checks over the main path
+        sent = {o.name: 0 for o in osds}
+        for i in range(OSD_OPS):
+            sent[owner(i).name] += 5  # pool A: 1 encode, 2 decodes; pool B: 1 + 1
+        for i in range(W16_OPS):
+            sent[owner(i, W16_OSDS).name] += 2
+        for o in osds:
+            t = o.dispatch.dump()["totals"]
+            lanes = t["lanes"]
+            if lanes["remote"]["ops"] != sent[o.name] or lanes["device"]["ops"] != 0:
+                raise AssertionError(f"{o.name}: lanes {lanes}, expected "
+                                     f"{sent[o.name]} remote ops")
+            if t["failovers"] or t["fallback_direct"] or t["native_direct"]:
+                raise AssertionError(f"{o.name}: ops served off the service: {t}")
+        t = acc.dispatch.dump()["totals"]
+        if t["failovers"] or t["fallback_direct"] or t["native_direct"] or \
+                t["deadline_timeouts"]:
+            raise AssertionError(f"accel.0: ops served off the card: {t}")
+        shared = t["cross_client_batches"]
+        if shared == 0:
+            raise AssertionError("no daemon launch was shared by two or more OSDs")
+        if acc.supervisor.state != HEALTHY:
+            raise AssertionError(f"accel.0 supervisor {STATE_NAMES[acc.supervisor.state]}")
+        rtt = {o.name: o.pacc.dump()["remote_rtt"] for o in osds}
+        log(f"  accel.0 dispatcher: {t['batches']} launches for {t['ops']} member ops "
+            f"({t['ops'] / t['batches']:.2f} ops a launch), {shared} launches shared by "
+            f"two or more OSDs, flush {t['flush_reasons']}, pad stripes {t['pad_stripes']}; "
+            f"clients {acc.client_table()}")
+        med = {k: statistics.median(v) * 1e3 for k, v in split.items() if v}
+        avg_rtt = sum(r["sum"] for r in rtt.values()) / max(
+            1, sum(r["avgcount"] for r in rtt.values())) * 1e3
+        service = acc.perf.get("accel").dump()["service_time"]
+        log(f"  per request: OSD-side round trip {avg_rtt:.3f} ms on average over "
+            f"{sum(r['avgcount'] for r in rtt.values())} batches; daemon queue wait median "
+            f"{med.get('queue_wait', 0):.3f} ms, device wall median "
+            f"{med.get('device_wall', 0):.3f} ms ({len(split['device_wall'])} records); "
+            f"the daemon's service time (receipt to reply, a request) "
+            f"{service['avg'] * 1e3:.3f} ms on average over {service['avgcount']}")
+
+        # failover: the daemon stops while a pool-A batch of 8 ops from
+        # 2 OSDs is in flight; every waiter must get the same bytes
+        # through its OSD's local replay, and no local breaker moves
+        acc.dispatch.inject_launch_hang = FAILOVER_HOLD_S
+        before = {o.name: dict(o.dispatch.dump()["totals"]) for o in osds}
+        tasks = [asyncio.ensure_future(owner(i, FAILOVER_OSDS).dispatch.encode(
+            sinfo_a, codec_a, o)) for i, o in enumerate(objs[:FAILOVER_OPS])]
+        t0 = time.perf_counter()
+        while not acc.dispatch.dump()["inflight_launches"]:
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError("the failover batch never reached the daemon's card")
+            await asyncio.sleep(0.001)
+        await acc.stop(crash=True)
+        replayed = await asyncio.gather(*tasks)
+        for i, g in enumerate(replayed):
+            _check_shards(f"replayed op {i}", g, want_a[i])
+        n_replayed = 0
+        for o in osds[:FAILOVER_OSDS]:
+            t = o.dispatch.dump()["totals"]
+            n_replayed += t["replayed_ops"] - before[o.name]["replayed_ops"]
+            recs = new_records(o)
+            if not recs or any((r["served"], r.get("origin")) != ("fallback", "remote")
+                               for r in recs):
+                raise AssertionError(f"{o.name}: failover records {recs}")
+            if o.sup.state != HEALTHY or o.sup.totals["fatal_errors"]:
+                raise AssertionError(f"{o.name}: the local breaker moved: {o.sup.dump()}")
+        if n_replayed != FAILOVER_OPS:
+            raise AssertionError(f"{n_replayed} ops replayed, expected {FAILOVER_OPS}")
+        log(f"  failover: accel.0 stopped with {FAILOVER_OPS} ops from {FAILOVER_OSDS} OSDs "
+            f"in flight; all replayed on the OSDs' host engines (origin=remote), bytes == "
+            f"host engine; local breakers HEALTHY")
+        for o in osds:
+            await o.stop()
+        await time_wire(objs, sinfo_a)
+
+    asyncio.run(asyncio.wait_for(main(), ACCEL_PHASE_LIMIT_S))
+    return launches["phase"]
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "ceph_tpu_torch" / "__init__.py").exists():
@@ -1497,16 +1847,21 @@ def main() -> int:
     time_packet_layout(dev, rng)
 
     log("== 6. OSD EC engine")
-    osd_launches = run_osd_engine(dev, rng)
+    osd_figures = {}
+    osd_launches = run_osd_engine(dev, rng, osd_figures)
 
     log("== 7. CRUSH bulk placement")
     rows.append(run_crush(dev, rng))
 
     log("== 8. cluster map and churn planning")
     churn_launches = run_churn(dev, rng)
+
+    log("== 9. shared accelerator service")
+    accel_launches = run_accel_service(dev, rng, osd_figures)
     for row in rows:
         row["launches_osd_engine"] = osd_launches[row["name"]]
         row["launches_churn"] = churn_launches[row["name"]]
+        row["launches_accel_service"] = accel_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -11,6 +11,11 @@
   (``vec_do_rule``, ``CrushTester``, ``crushtool --test``) too, and for
   the churn planner (``ChurnPlanner``), whose device path raises on a
   fault instead of falling back to the scalar walk.
+- The accelerator daemon owns the card: ``AccelDaemon()`` and the
+  ``accel`` role of ``tools.daemon`` raise without CUDA unless given the
+  CPU, and the options of the daemon that are not ported yet
+  (``mon_addr``, ``admin_socket``, ``osd_ec_mesh``) raise
+  ``NotImplementedError`` instead of being ignored.
 """
 
 import pathlib
@@ -81,6 +86,17 @@ _SLICE_MODULES = {
     "ceph_tpu_torch.store", "ceph_tpu_torch.store.kv", "ceph_tpu_torch.mon",
     "ceph_tpu_torch.mon.store", "ceph_tpu_torch.tools.osdmaptool",
     "ceph_tpu_torch.osd.churn",
+    # the messenger and the shared accelerator service
+    "ceph_tpu_torch.common.config", "ceph_tpu_torch.common.throttle",
+    "ceph_tpu_torch.common.slab", "ceph_tpu_torch.common.recv_pool",
+    "ceph_tpu_torch.common.clocksync", "ceph_tpu_torch.common.stack_ledger",
+    "ceph_tpu_torch.common.heartbeat_map", "ceph_tpu_torch.common.log",
+    "ceph_tpu_torch.auth", "ceph_tpu_torch.store.objectstore",
+    "ceph_tpu_torch.msg", "ceph_tpu_torch.msg.message",
+    "ceph_tpu_torch.msg.messages", "ceph_tpu_torch.msg.messenger",
+    "ceph_tpu_torch.osd.scheduler", "ceph_tpu_torch.accel.client",
+    "ceph_tpu_torch.accel.daemon", "ceph_tpu_torch.tools.daemon",
+    "ceph_tpu_torch.tools.wire_profile",
 }
 
 
@@ -223,3 +239,83 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_accel_daemon_raises_without_cuda_unless_asked_for_the_cpu():
+    _needs_no_cuda()
+    from ceph_tpu_torch.accel import AccelDaemon
+
+    with pytest.raises(DeviceUnavailableError):
+        AccelDaemon()
+    with pytest.raises(DeviceUnavailableError):
+        AccelDaemon("accel.1", device="cuda")
+    acc = AccelDaemon("accel.2", device="cpu")
+    assert acc.device.type == "cpu"
+
+
+def test_accel_role_of_the_daemon_tool_raises_without_cuda():
+    _needs_no_cuda()
+    from ceph_tpu_torch.tools import daemon
+
+    with pytest.raises(DeviceUnavailableError):
+        daemon.main(["accel", "--id", "0", "--addr", "127.0.0.1:0"])
+    for role in (["mon", "--rank", "0", "--addr", "127.0.0.1:0",
+                  "--monmap", "127.0.0.1:1", "--store", "s"],
+                 ["osd", "--id", "0", "--monmap", "127.0.0.1:1",
+                  "--store", "s"]):
+        with pytest.raises(NotImplementedError):
+            daemon.main(role)
+    with pytest.raises(NotImplementedError, match="not supported"):
+        daemon.main(["accel", "--id", "0", "--addr", "127.0.0.1:0",
+                     "--device", "cpu", "--monmap", "127.0.0.1:1"])
+
+
+def test_accel_role_serves_on_the_cpu_when_asked():
+    """``--device cpu`` starts the daemon: it prints its address and
+    stops cleanly on SIGTERM.  Every wait on the child is bounded."""
+    import select
+    import signal
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.daemon", "accel",
+         "--id", "3", "--addr", "127.0.0.1:0", "--device", "cpu"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 60)
+        assert ready, "the daemon printed nothing within 60 s"
+        line = proc.stdout.readline()
+        assert line.startswith("accel.3 up at 127.0.0.1:"), (
+            line, proc.stderr.read() if proc.poll() is not None else "")
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.mark.parametrize("what", ["mon_addr", "admin_socket", "osd_ec_mesh"])
+def test_accel_daemon_refuses_what_is_not_ported(what):
+    from ceph_tpu_torch.accel import AccelDaemon
+    from ceph_tpu_torch.common import Config
+
+    if what == "mon_addr":
+        kw = {"mon_addr": "127.0.0.1:1"}
+    else:
+        kw = {"config": Config({what: "/tmp/x.asok" if what == "admin_socket"
+                                else True}, env="")}
+    with pytest.raises(NotImplementedError, match="not supported"):
+        AccelDaemon("accel.9", device="cpu", **kw)
+
+
+def test_dispatcher_accepts_a_remote_and_still_refuses_a_mesh():
+    from ceph_tpu_torch.accel import AccelClient
+    from ceph_tpu_torch.msg import AsyncMessenger, Dispatcher
+    from ceph_tpu_torch.osd.ec_dispatch import ECDispatcher
+
+    client = AccelClient(AsyncMessenger("osd.0", Dispatcher()),
+                         addr="127.0.0.1:1", mode="require")
+    assert ECDispatcher(remote=client).dump()["remote"]["mode"] == "require"
+    with pytest.raises(ValueError, match="item 8"):
+        ECDispatcher(mesh_engine=object())
