@@ -1,8 +1,8 @@
 """The shared EC accelerator service: the fleet map the OSDMap carries
 (``accelmap``), the OSD-side client of the remote dispatcher lane
-(``client``) and the daemon that owns the card (``daemon``).
-Counterpart of ``ceph_tpu/accel``; the fleet router (``router``) is not
-ported yet."""
+(``client``), the fleet router over the mon-published map
+(``router``) and the daemon that owns the card (``daemon``).
+Counterpart of ``ceph_tpu/accel``."""
 
 from .accelmap import AccelEntry, AccelMap
 from .client import (
@@ -12,6 +12,8 @@ from .client import (
     AccelUnavailable,
 )
 from .daemon import AccelDaemon
+from .router import AccelRouter
 
 __all__ = ["AccelEntry", "AccelMap", "AccelClient", "AccelDataError",
-           "AccelServiceError", "AccelUnavailable", "AccelDaemon"]
+           "AccelServiceError", "AccelUnavailable", "AccelDaemon",
+           "AccelRouter"]

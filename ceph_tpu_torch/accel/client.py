@@ -96,9 +96,15 @@ class AccelClient:
 
     def __init__(self, messenger, *, addr: str = "", mode: str = "off",
                  deadline: float = 10.0, retry_interval: float = 1.0,
-                 stale_interval: float = _STATE_STALE_S, perf=None):
+                 stale_interval: float = _STATE_STALE_S, perf=None,
+                 aid: int | None = None, locality: str = ""):
         self.messenger = messenger
         self.addr = addr
+        # fleet identity (AccelRouter): the mon-assigned accel id and
+        # locality label of the map entry this client targets (None/""
+        # for the osd_ec_accel_addr static shim)
+        self.aid = aid
+        self.locality = locality
         self.mode = mode
         self.deadline = float(deadline)
         self.retry_interval = float(retry_interval)
@@ -557,4 +563,6 @@ class AccelClient:
             ),
             "inflight": len(self._waiters),
             "totals": dict(self.totals),
+            **({"aid": self.aid} if self.aid is not None else {}),
+            **({"locality": self.locality} if self.locality else {}),
         }

@@ -7,10 +7,8 @@ on CUDA (and raises ``DeviceUnavailableError`` without it);
 package's registry on that device, so an ISA / Reed-Solomon batch runs
 ``gf_matmul`` and a bit-matrix batch runs ``bitmatrix_xor`` on the card.
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: ``mon_addr`` (map subscription, AccelMap registration and mgr
-reports wait for the Monitor), the ``admin_socket`` option (the admin
-socket, ROADMAP Queue A item 10) and the ``osd_ec_mesh`` option (the
-mesh lane, item 8).
+ignored: the ``admin_socket`` option (the admin socket, ROADMAP Queue A
+item 10) and the ``osd_ec_mesh`` option (the mesh lane, item 8).
 
 One standalone process keeps persistent device state (codecs, their
 matrices, built kernels) resident and amortizes device cost across the
@@ -40,10 +38,16 @@ The engine room is exactly the OSD's (one code path, two processes):
   replays on the host engine here, and if that fails too the reply is
   EIO and the client OSD replays the batch locally.
 
-Health rides every reply and a periodic
-:class:`~ceph_tpu_torch.msg.messages.MAccelBeacon`: both piggyback the
-breaker state + queue depth, so OSDs route around a TRIPPED or
-saturated accelerator without a timeout chain.
+Health flows two ways: every reply and a periodic
+:class:`~ceph_tpu_torch.msg.messages.MAccelBeacon` piggyback the breaker
+state + queue depth (OSDs route around a TRIPPED or saturated
+accelerator without a timeout chain), and — when a monitor is
+configured (``mon_addr``) — the daemon subscribes to maps, registers
+into the mon-published AccelMap (``MAccelBoot`` with its
+``accel_locality`` label and capacity, refreshed every beacon tick;
+OSD routers learn it from the next map push) and reports its perf
+counters to the map's mgr (``MDaemonStats``).  An unreachable mon is
+logged and retried; it never moves the codecs off the card.
 
 Threads and buffers: the dispatcher launches kernels from its worker
 threads while the event loop serves the sockets.  A request's member
@@ -67,6 +71,7 @@ import numpy as np
 from ..device import resolve
 from ..msg import AsyncMessenger, Connection, Dispatcher, messages
 from ..msg.message import Message
+from ..msg.messenger import send_daemon_stats
 from ..osd import ec_util
 from ..utils.buffers import as_u8
 
@@ -80,8 +85,6 @@ EIO = 5
 _CLIENT_FRESH_S = 30.0
 
 _NOT_PORTED = {
-    "mon_addr": "map subscription, AccelMap registration and mgr "
-                "reports wait for the Monitor (ROADMAP Queue A item 11)",
     "admin_socket": "the admin socket waits for ROADMAP Queue A item 10",
     "osd_ec_mesh": "the mesh lane waits for ROADMAP Queue A item 8 "
                    "(multi-device EC)",
@@ -93,8 +96,9 @@ class AccelDaemon(Dispatcher):
 
     ``device`` is where its codecs live: None is the card (raises
     ``DeviceUnavailableError`` without CUDA), ``"cpu"`` is for tests.
-    ``mon_addr`` must be None: the standalone topology (requests and
-    beacons, no map subscription, no mgr reports) is the one ported.
+    ``mon_addr`` (one address or a list) is optional: without it the
+    daemon serves requests and beacons but skips map subscription,
+    AccelMap registration and mgr reporting (the standalone topology).
     """
 
     def __init__(self, name: str = "accel.0",
@@ -105,8 +109,7 @@ class AccelDaemon(Dispatcher):
 
         self.config = config or Config()
         cfg = self.config
-        for what, refused in (("mon_addr", mon_addr),
-                              ("admin_socket", cfg.admin_socket),
+        for what, refused in (("admin_socket", cfg.admin_socket),
                               ("osd_ec_mesh", cfg.osd_ec_mesh)):
             if refused:
                 raise NotImplementedError(
@@ -114,6 +117,8 @@ class AccelDaemon(Dispatcher):
         self.device = resolve(device)
         _install_memlog()
         self.name = name
+        self.mon_addr = mon_addr
+        self.osdmap = None
         self.messenger = AsyncMessenger(name, self)
         self.messenger.apply_config(cfg)
         from ..auth import daemon_auth_context
@@ -209,6 +214,7 @@ class AccelDaemon(Dispatcher):
         self._beacon_task: asyncio.Task | None = None
         self._report_task: asyncio.Task | None = None
         self._stopping = False
+        self._mon_conn: Connection | None = None
         # live knobs (tracked so stop() unregisters; a shared Config
         # must not keep firing actions on dead daemons)
         self._observers = [
@@ -261,14 +267,76 @@ class AccelDaemon(Dispatcher):
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> str:
         self.addr = await self.messenger.bind(host, port)
         self._beacon_task = asyncio.ensure_future(self._beacon_loop())
+        if self.mon_addr:
+            # best-effort: the accelerator serves fine without a mon
+            # (standalone topology); with one, it learns the map (mgr
+            # address), REGISTERS into the mon-published AccelMap (OSD
+            # routers learn this daemon from the next map push) and
+            # reports its counters
+            try:
+                await self._connect_mon()
+                self._register_mon()
+            # swallow-ok: the report loop keeps retrying the mon
+            except (ConnectionError, OSError) as e:
+                logger.warning("%s: no mon reachable at start (%r); "
+                               "registration deferred", self.name, e)
         self._report_task = asyncio.ensure_future(self._report_loop())
         logger.info("%s: serving EC batches at %s", self.name, self.addr)
         return self.addr
+
+    @property
+    def _mon_addrs(self) -> list[str]:
+        if isinstance(self.mon_addr, str):
+            return [self.mon_addr]
+        return list(self.mon_addr or [])
+
+    async def _connect_mon(self) -> Connection:
+        """Connect to the first reachable mon and subscribe to its maps
+        (``MMonGetMap``)."""
+        last: Exception | None = None
+        for addr in self._mon_addrs:
+            try:
+                conn = await self.messenger.connect(addr, "mon")
+                conn.send(messages.MMonGetMap(have=0))
+                self._mon_conn = conn
+                return conn
+            # swallow-ok: tries the next mon; raises when all fail
+            except (ConnectionError, OSError) as e:
+                last = e
+        raise ConnectionError(f"no mon reachable: {last}")
+
+    def _register_mon(self) -> None:
+        """One AccelMap registration beacon to the mon (best-effort —
+        a dead mon conn is the report loop's problem): name, serving
+        address, locality label, stripe capacity."""
+        conn = self._mon_conn
+        if conn is None or not self.addr or self._stopping:
+            return
+        conn.send(messages.MAccelBoot(
+            name=self.name, addr=self.addr,
+            locality=self.config.accel_locality,
+            capacity=max(1, int(self.config.osd_op_queue_slots)),
+            down=False,
+        ))
 
     async def stop(self, crash: bool = False) -> None:
         """``crash=True`` models SIGKILL: connections die NOW, mid-
         batch — in-flight replies are never sent, and every client OSD
         must recover by replaying locally (zero failed client ops)."""
+        if not crash and not self._stopping and self._mon_conn is not None:
+            # graceful deregistration: the mon marks us down on this
+            # word instead of waiting out the beacon grace (a crash
+            # stop deliberately skips it — the connection reset and
+            # the grace ARE the crash signal)
+            try:
+                self._mon_conn.send(messages.MAccelBoot(
+                    name=self.name, addr=self.addr, locality="",
+                    capacity=0, down=True,
+                ))
+            # swallow-ok: best-effort deregistration on a dying conn —
+            # the mon's reset path covers it
+            except Exception:
+                pass
         self._stopping = True
         for opt, cb in self._observers:
             self.config.unobserve(opt, cb)
@@ -298,6 +366,21 @@ class AccelDaemon(Dispatcher):
             t = asyncio.ensure_future(self._serve(conn, msg))
             self._tasks.add(t)
             t.add_done_callback(self._tasks.discard)
+        elif isinstance(msg, messages.MOSDMapMsg):
+            from ..osd.osdmap import advance_map
+
+            if self.osdmap is None or msg.epoch > self.osdmap.epoch:
+                m = advance_map(
+                    self.osdmap, msg.epoch, msg.osdmap, msg.incrementals
+                )
+                if m is None:
+                    conn.send(messages.MMonGetMap(have=None))
+                    return
+                self.osdmap = m
+
+    def ms_handle_reset(self, conn: Connection) -> None:
+        if conn is self._mon_conn:
+            self._mon_conn = None
 
     # -- the service ---------------------------------------------------------
 
@@ -499,23 +582,36 @@ class AccelDaemon(Dispatcher):
             self._cross_client_reported = total
             self._pacc.inc("cross_client_batches", delta)
 
-    # -- beacon + watchdog ---------------------------------------------------
+    # -- beacon, watchdog + mgr reporting ------------------------------------
 
     async def _beacon_loop(self) -> None:
         """Engine-state/queue-depth beacon to every connected peer: a
         TRIPPED breaker or a saturating queue re-routes OSD traffic to
         their local lanes on the NEXT request — no timeout chain — and
         a healthy beacon routes it back (``accel_beacon_interval``;
-        <= 0 disables the beacons).  Runs until :meth:`stop` cancels
-        it."""
+        <= 0 disables the beacons).  The mon gets the AccelMap
+        registration beacon on every tick either way.  Runs until
+        :meth:`stop` cancels it."""
         while not self._stopping:
             interval = self.config.accel_beacon_interval
             await asyncio.sleep(interval if interval > 0 else 1.0)
-            if self._stopping or interval <= 0:
+            if self._stopping:
+                continue
+            # the mon gets the REGISTRATION beacon (MAccelBoot)
+            # regardless of the client-beacon knob: interval <= 0
+            # disables only the OSD-facing health beacons — a live
+            # daemon must keep proving liveness to the mon, or the
+            # beacon-grace check would mark a healthy accelerator
+            # down.  True silence (this loop wedged or dead) is exactly
+            # what mon_accel_beacon_grace catches
+            self._register_mon()
+            if interval <= 0:
                 continue
             fields = self._health_fields()
             sent = False
             for conn in list(self.messenger._all):
+                if conn is self._mon_conn:
+                    continue  # the mon is not an EC client
                 conn.send(messages.MAccelBeacon(name=self.name, **fields))
                 sent = True
             if sent:
@@ -527,16 +623,30 @@ class AccelDaemon(Dispatcher):
             ))
 
     async def _report_loop(self) -> None:
-        """The watchdog tick (``accel_mgr_report_interval``): POLLS the
-        HeartbeatMap (it is passive — suicide only fires from
-        is_healthy()), so a wedged device launch past suicide_grace
-        actually stops the daemon like the watchdog contract promises,
-        and re-asserts the engine_state gauge so a perf reset cannot
-        hide a TRIPPED breaker.  The reference's loop also reports to
-        the mgr; that waits for the Monitor.  Runs until :meth:`stop`
-        cancels it."""
+        """The report tick (``accel_mgr_report_interval``): perf-counter
+        reports to the map's mgr (``MDaemonStats``; nothing while the
+        map names no mgr) and a reconnect to the mon when its link
+        died; also POLLS the HeartbeatMap (it is passive — suicide only
+        fires from is_healthy()), so a wedged device launch past
+        suicide_grace actually stops the daemon like the watchdog
+        contract promises, and re-asserts the engine_state gauge so a
+        perf reset cannot hide a TRIPPED breaker.  Runs until
+        :meth:`stop` cancels it."""
         while not self._stopping:
             interval = self.config.accel_mgr_report_interval
             await asyncio.sleep(interval if interval > 0 else 1.0)
             self.hb_map.is_healthy()
             self.supervisor.refresh_gauge()
+            if interval <= 0 or not self.mon_addr:
+                continue
+            if self._mon_conn is None:
+                try:
+                    await self._connect_mon()
+                # swallow-ok: mon bouncing — retry next tick
+                except (ConnectionError, OSError):
+                    logger.warning("%s: no mon reachable; retrying",
+                                   self.name)
+                    continue
+            await send_daemon_stats(
+                self.messenger, self.osdmap, self.name, self.perf.dump(),
+            )

@@ -1,7 +1,9 @@
-"""The monitor's durable map store (``store.MonitorDBStore``: the
-OSDMap's incrementals with periodic full checkpoints).  Counterpart of
-``ceph_tpu/mon``, of which only the store is in this package."""
+"""Control plane: the monitor (``monitor.Monitor``: the OSDMap and
+AccelMap authority, single mon or a Paxos-lite quorum) and its durable
+map store (``store.MonitorDBStore``: the OSDMap's incrementals with
+periodic full checkpoints).  Counterpart of ``ceph_tpu/mon``."""
 
+from .monitor import Monitor
 from .store import MonitorDBStore
 
-__all__ = ["MonitorDBStore"]
+__all__ = ["Monitor", "MonitorDBStore"]

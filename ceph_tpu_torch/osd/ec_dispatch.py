@@ -137,13 +137,16 @@ class _Op:
     ``client`` names the requesting entity; when no explicit client is
     passed it captures ``current_client`` — the tenant id the op path
     set at dispatch — so flight records attribute device time per
-    tenant with no signature threading through the EC call chain."""
+    tenant with no signature threading through the EC call chain.
+    ``locality`` holds the surviving shards' OSD locality labels
+    (decode only): the fleet router prefers the accelerator matching
+    the batch's majority label."""
 
     __slots__ = ("fut", "stripes", "payload", "trace", "t_submit",
-                 "client")
+                 "client", "locality")
 
     def __init__(self, fut: asyncio.Future, stripes: int, payload: Any,
-                 client=None):
+                 client=None, locality: "list[str] | None" = None):
         self.fut = fut
         self.stripes = stripes
         self.payload = payload
@@ -151,6 +154,7 @@ class _Op:
         self.t_submit = time.monotonic()
         self.client = client if client is not None \
             else current_client.get()
+        self.locality = locality
 
 
 class _Batch:
@@ -350,11 +354,14 @@ class ECDispatcher:
         self, sinfo: ec_util.StripeInfo, codec,
         chunks: Mapping[int, np.ndarray], *, klass: str = "client",
         client: str | None = None,
+        locality: "list[str] | None" = None,
     ) -> bytes:
         """Batched analog of :func:`ec_util.decode_concat`.  Requests
         coalesce only with peers reading through the SAME survivor set
         (the recovery matrix depends on it) and the same QoS class (see
-        :meth:`encode`)."""
+        :meth:`encode`).  ``locality`` names the surviving shards' OSD
+        locality labels; the remote lane's router prefers the
+        accelerator matching the batch's majority label."""
         if client is None:
             client = current_client.get()  # see encode()
         arrs = {int(s): as_u8(v) for s, v in chunks.items()}
@@ -387,7 +394,8 @@ class ECDispatcher:
                    sinfo.stripe_width, sinfo.chunk_size, present)
             return await self._submit(key, "dec", codec, sinfo, arrs,
                                       stripes, lane="remote",
-                                      klass=klass, client=client)
+                                      klass=klass, client=client,
+                                      locality=locality)
         if ec_util.native_decode_path(codec, shard_len):
             return await self._run_native_direct(
                 ec_util.decode_concat, sinfo, codec, arrs, "decode",
@@ -578,7 +586,8 @@ class ECDispatcher:
     async def _submit(self, key: tuple, kind: str, codec, sinfo,
                       payload, stripes: int, *, lane: str = "device",
                       klass: str = "client",
-                      client: str | None = None):
+                      client: str | None = None,
+                      locality: "list[str] | None" = None):
         loop = asyncio.get_running_loop()
         b = self._open.get(key)
         if b is not None and b.ops and (
@@ -596,7 +605,8 @@ class ECDispatcher:
             delay = self.window if self._last_ops > 1 else 0.0
             b.timer = loop.call_later(delay, self._flush, key, "window")
         fut = loop.create_future()
-        b.ops.append(_Op(fut, stripes, payload, client=client))
+        b.ops.append(_Op(fut, stripes, payload, client=client,
+                         locality=locality))
         b.stripes += stripes
         if b.stripes >= self.max_stripes:
             self._flush(key, "size")

@@ -7,9 +7,9 @@ the accelerator daemon find every key they mutate and a ``perf dump`` of
 either package has the same shape.  The ``accel`` family has two halves:
 the OSD's client-side view of its remote, and the accelerator daemon's
 service-side totals (distinct key names, so the shared subsystem name
-never collides).  The client half's fleet keys (``remote_failover_next``,
-``locality_hits``/``misses``, ``fleet_*``) and the per-target
-``accel@<id>`` family wait for the fleet router.
+never collides).  The client half carries the fleet router's keys
+(``remote_failover_next``, ``locality_hits``/``misses``, ``fleet_*``),
+and ``create_accel_target_perf`` the per-target ``accel@<id>`` family.
 """
 
 from __future__ import annotations
@@ -195,6 +195,64 @@ def create_accel_client_perf(perf):
                    "beacon/reply")
     pacc.add_time_avg("remote_rtt",
                       "remote batch round-trip wall time")
+    # the accelerator FLEET (accel/router.py): inter-accel failover +
+    # load/locality routing evidence, and the fleet gauges the mgr's
+    # ACCEL_FLEET_DEGRADED check reads
+    pacc.add_counter("remote_failover_next",
+                     "remote batches failed over to the NEXT "
+                     "accelerator in the fleet (no client op failed; "
+                     "local fallback happens only when the whole "
+                     "fleet is down)")
+    pacc.add_counter("locality_hits",
+                     "decode batches routed to the accelerator "
+                     "matching their surviving shards' majority "
+                     "locality label")
+    pacc.add_counter("locality_misses",
+                     "decode batches carrying locality labels that "
+                     "no (preferred) accelerator matched")
+    pacc.add_gauge("fleet_size", "accelerator targets this OSD routes "
+                                 "over (map entries, or 1 for the "
+                                 "static osd_ec_accel_addr shim)")
+    pacc.add_gauge("fleet_up", "fleet targets currently reachable")
+    pacc.add_gauge("fleet_down",
+                   "fleet targets sticky-down (>=1 with fleet_up>=1 "
+                   "raises ACCEL_FLEET_DEGRADED; all down raises "
+                   "ACCEL_UNREACHABLE)")
+    return pacc
+
+
+def create_accel_target_perf(perf, target):
+    """The per-accel split of the client half: one ``accel@<id>``
+    subsystem per fleet target, mutated by that target's AccelClient
+    alongside the aggregate family.  The mgr prometheus module
+    recognises the ``@`` form and exports these as
+    ``ceph_accel_*{accel="<id>"}`` labelled series, so a fleet's skew
+    is visible per target in one query."""
+    pacc = perf.create(f"accel@{target}")
+    pacc.add_counter("remote_batches",
+                     "coalesced EC batches shipped to this accelerator")
+    pacc.add_counter("remote_ops",
+                     "member ops served by this accelerator")
+    pacc.add_counter("remote_bytes",
+                     "payload bytes shipped to this accelerator")
+    pacc.add_counter("remote_failover_next",
+                     "batches this accelerator failed that the next "
+                     "fleet member retried")
+    pacc.add_counter("remote_data_errors",
+                     "data-shape errors answered by this accelerator")
+    pacc.add_counter("remote_routed_away",
+                     "requests that skipped this accelerator "
+                     "(TRIPPED/saturated beacon)")
+    pacc.add_gauge("remote_unreachable",
+                   "1 while this accelerator is sticky-down")
+    pacc.add_gauge("remote_state",
+                   "this accelerator's breaker state from its last "
+                   "beacon/reply")
+    pacc.add_gauge("remote_queue_depth",
+                   "this accelerator's queue depth from its last "
+                   "beacon/reply")
+    pacc.add_time_avg("remote_rtt",
+                      "batch round-trip wall time to this accelerator")
     return pacc
 
 

@@ -113,12 +113,36 @@ Phases, each fatal on any mismatch or exception:
    local replay (``origin=remote``) with the OSD's breaker untouched.
    Last, the messenger alone carries pool A encode's frames (no erasure
    code) once.  The phase runs under
-   ``asyncio.wait_for``.
+   ``asyncio.wait_for``;
+10. the accelerator fleet behind the mon: the port's mon in its own
+   process (``tools/daemon.py mon`` with a store, watching this
+   process), two ``AccelDaemon``s on the card registered through it
+   (``accel.a`` at locality host0, ``accel.b`` at host1), and 4
+   simulated OSDs each with a map subscription and an
+   ``AccelRouter(mode="require")`` fed ``apply_map`` from every push, a
+   dispatcher with that remote lane and its own ``EngineSupervisor``
+   (the fleet test's beacon and retry intervals, else ``Config()``'s).
+   Every router must hold both daemons at the mon's accelmap epoch.
+   Then, with the launch counts set to 0: phase 6's pools A and B
+   through the fleet (every byte checked; ``gf_matmul`` in pool A,
+   ``bitmatrix_xor`` in pool B; no op off the card; both daemons
+   launch; the routers' ``accel@<id>`` split sums to their aggregate);
+   16 degraded reads whose survivors are labelled mostly host1 must all
+   go to ``accel.b`` (locality hits, no misses); ``accel.a`` crashes
+   with 8 reads from 2 OSDs in flight on it, and ``accel.b`` must serve
+   every one (``failover_next`` >= 1, no local replay, local breakers
+   HEALTHY) while the mon's markdown reaches all four routers within
+   5 s (the time from the kill is printed); last ``accel.b`` crashes
+   with 8 reads in flight, which replay on the OSDs (``origin=remote``),
+   and every router reads unreachable.  Each step's GB/s is printed
+   beside phase 9's.  The phase runs under ``asyncio.wait_for`` and
+   stops the mon process.
 
 Output: the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on its main path, phase 4 or 7, with ``launches_osd_engine``
-from phase 6, ``launches_churn`` from phase 8 and
-``launches_accel_service`` from phase 9 beside it), and last
+from phase 6, ``launches_churn`` from phase 8,
+``launches_accel_service`` from phase 9 and ``launches_accel_fleet``
+from phase 10 beside it), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -1475,6 +1499,87 @@ def run_churn(dev, rng) -> dict:
 
 # -- phase 9: the shared accelerator service --------------------------------------
 
+
+def sim_osd_class():
+    """The simulated OSD of phases 9 and 10 (a class built on first use:
+    the port is imported only once the script has found it)."""
+    import asyncio
+
+    from ceph_tpu_torch.common import PerfCountersCollection
+    from ceph_tpu_torch.msg import AsyncMessenger, Dispatcher, messages
+    from ceph_tpu_torch.osd.ec_dispatch import ECDispatcher
+    from ceph_tpu_torch.osd.ec_failover import EngineSupervisor
+    from ceph_tpu_torch.osd.ec_perf import create_accel_client_perf, create_ec_perf
+    from ceph_tpu_torch.osd.osdmap import advance_map
+
+    class SimOsd(Dispatcher):
+        """A simulated OSD: messenger, a remote lane built by
+        ``make_remote(self)`` (an ``AccelClient``, or an ``AccelRouter``
+        fed ``apply_map`` from every push of a mon it subscribes to, as
+        the OSD daemon does), a dispatcher with that lane, its own
+        breaker, and codecs on the CPU."""
+
+        def __init__(self, i: int, cfg, make_remote):
+            self.name = f"osd.{i}"
+            self.messenger = AsyncMessenger(self.name, self)
+            self.messenger.apply_config(cfg)
+            self.perf = PerfCountersCollection()
+            self.pacc = create_accel_client_perf(self.perf)
+            self.remote = make_remote(self)
+            self.sup = EngineSupervisor(enabled=True, perf=create_ec_perf(self.perf),
+                                        probe_interval=OSD_PROBE_INTERVAL_S)
+            self.dispatch = ECDispatcher(
+                window=cfg.osd_ec_dispatch_window,
+                max_stripes=cfg.osd_ec_dispatch_max_stripes,
+                bucket=cfg.osd_ec_dispatch_bucket, max_workers=OSD_WORKERS,
+                supervisor=self.sup, launch_deadline=cfg.osd_ec_launch_deadline,
+                remote=self.remote)
+            self.osdmap = None
+            self.mon = None
+            self.dropped = {}  # accel id -> when a map push dropped it
+            self.replies = {}
+            self.tid = 0
+
+        async def subscribe(self, mon_addr):
+            self.mon = await self.messenger.connect(mon_addr, "mon")
+            self.mon.send(messages.MMonGetMap(have=0))
+
+        async def command(self, cmd):
+            self.tid += 1
+            fut = self.replies[self.tid] = asyncio.get_running_loop().create_future()
+            self.mon.send(messages.MMonCommand(tid=self.tid, cmd=cmd))
+            reply = await asyncio.wait_for(fut, 30)
+            if reply.code != 0:
+                raise AssertionError(f"mon command {cmd}: {reply.code} {reply.status}")
+            return reply.out
+
+        async def ms_dispatch(self, conn, msg):
+            if isinstance(msg, messages.MOSDMapMsg):
+                m = advance_map(self.osdmap, msg.epoch, msg.osdmap, msg.incrementals)
+                if m is None:
+                    conn.send(messages.MMonGetMap(have=None))
+                    return
+                self.osdmap = m
+                had = set(self.remote._map_clients)
+                self.remote.apply_map(m.accelmap)
+                for aid in had - set(self.remote._map_clients):
+                    self.dropped[aid] = time.perf_counter()
+            elif isinstance(msg, messages.MMonCommandReply):
+                fut = self.replies.pop(msg.tid, None)
+                if fut is not None and not fut.done():
+                    fut.set_result(msg)
+            else:
+                self.remote.handle(msg, conn)
+
+        def ms_handle_reset(self, conn):
+            self.remote.on_reset(conn)
+
+        async def stop(self):
+            await self.dispatch.stop()
+            await self.messenger.shutdown()
+
+    return SimOsd
+
 # 4 simulated OSDs feed one accelerator daemon over loopback TCP
 ACCEL_OSDS = 4
 # pool C: the w=16 case, 8 objects from 2 OSDs
@@ -1506,61 +1611,27 @@ async def time_wire(objs, sinfo) -> None:
         f"{nbytes / s / 1e9:.3f} GB/s of object bytes ({s * 1e3:.1f} ms, host clock)")
 
 
-def run_accel_service(dev, rng, in_process: dict | None = None) -> dict:
+def run_accel_service(dev, rng, in_process: dict | None = None,
+                      figures: dict | None = None) -> dict:
     """Phase 9 (see the module docstring).  ``in_process`` holds phase
-    6's GB/s of the same steps, printed beside the service's.  Returns
-    the kernels' launch counts over the phase's main path (every launch
-    is the daemon's: the OSDs' codecs live on the CPU)."""
+    6's GB/s of the same steps, printed beside the service's;
+    ``figures``, when given, gets the service's own (phase 10 prints
+    them beside the fleet's).  Returns the kernels' launch counts over
+    the phase's main path (every launch is the daemon's: the OSDs'
+    codecs live on the CPU)."""
     import asyncio
 
     import torch
 
     from ceph_tpu_torch.accel import AccelClient, AccelDaemon
-    from ceph_tpu_torch.common import Config, PerfCountersCollection
+    from ceph_tpu_torch.common import Config
     from ceph_tpu_torch.models import registry
-    from ceph_tpu_torch.msg import AsyncMessenger, Dispatcher
     from ceph_tpu_torch.ops import gf_cuda
     from ceph_tpu_torch.osd import ec_util
-    from ceph_tpu_torch.osd.ec_dispatch import ECDispatcher
-    from ceph_tpu_torch.osd.ec_failover import HEALTHY, STATE_NAMES, EngineSupervisor
-    from ceph_tpu_torch.osd.ec_perf import create_accel_client_perf, create_ec_perf
+    from ceph_tpu_torch.osd.ec_failover import HEALTHY, STATE_NAMES
 
     cfg = Config(env="")
-
-    class Osd(Dispatcher):
-        """A simulated OSD: messenger, accelerator client, dispatcher
-        with the remote lane (``require``), its own breaker, and codecs
-        on the CPU."""
-
-        def __init__(self, i: int, addr: str):
-            self.name = f"osd.{i}"
-            self.messenger = AsyncMessenger(self.name, self)
-            self.messenger.apply_config(cfg)
-            perf = PerfCountersCollection()
-            self.pacc = create_accel_client_perf(perf)
-            self.client = AccelClient(
-                self.messenger, addr=addr, mode="require",
-                deadline=cfg.osd_ec_accel_deadline,
-                retry_interval=cfg.osd_ec_accel_retry_interval,
-                stale_interval=cfg.osd_ec_accel_stale_interval, perf=self.pacc)
-            self.sup = EngineSupervisor(enabled=True, perf=create_ec_perf(perf),
-                                        probe_interval=OSD_PROBE_INTERVAL_S)
-            self.dispatch = ECDispatcher(
-                window=cfg.osd_ec_dispatch_window,
-                max_stripes=cfg.osd_ec_dispatch_max_stripes,
-                bucket=cfg.osd_ec_dispatch_bucket, max_workers=OSD_WORKERS,
-                supervisor=self.sup, launch_deadline=cfg.osd_ec_launch_deadline,
-                remote=self.client)
-
-        async def ms_dispatch(self, conn, msg):
-            self.client.handle(msg, conn)
-
-        def ms_handle_reset(self, conn):
-            self.client.on_reset(conn)
-
-        async def stop(self):
-            await self.dispatch.stop()
-            await self.messenger.shutdown()
+    SimOsd = sim_osd_class()
 
     def cpu_pool(spec):
         # the wire profile names its plugin, as a pool's EC profile does:
@@ -1590,7 +1661,12 @@ def run_accel_service(dev, rng, in_process: dict | None = None) -> dict:
         if acc.device != dev:
             raise AssertionError(f"accelerator daemon on {acc.device}, expected {dev}")
         await acc.start("127.0.0.1", 0)
-        osds = [Osd(i, acc.addr) for i in range(ACCEL_OSDS)]
+        osds = [SimOsd(i, cfg, lambda o: AccelClient(
+            o.messenger, addr=acc.addr, mode="require",
+            deadline=cfg.osd_ec_accel_deadline,
+            retry_interval=cfg.osd_ec_accel_retry_interval,
+            stale_interval=cfg.osd_ec_accel_stale_interval, perf=o.pacc))
+            for i in range(ACCEL_OSDS)]
         log(f"  accel.0 on {acc.device} at {acc.addr}; {ACCEL_OSDS} OSDs (mode require, "
             f"codecs on the CPU); window {cfg.osd_ec_dispatch_window} s, "
             f"{cfg.osd_ec_dispatch_max_stripes} stripes")
@@ -1640,6 +1716,8 @@ def run_accel_service(dev, rng, in_process: dict | None = None) -> dict:
                     split["queue_wait"].append(r.get("remote_queue_wait_s") or 0.0)
 
         def step(name, nbytes, seconds):
+            if figures is not None:
+                figures[name] = f"{gbps(nbytes, seconds):.3f} GB/s"
             log(f"  {name}: {gbps(nbytes, seconds):.3f} GB/s ({seconds * 1e3:.1f} ms, "
                 f"host clock, through the service); "
                 f"in process (phase 6): {(in_process or {}).get(name, 'not run')}")
@@ -1791,6 +1869,359 @@ def run_accel_service(dev, rng, in_process: dict | None = None) -> dict:
     return launches["phase"]
 
 
+# -- phase 10: the accelerator fleet behind the Monitor ---------------------------
+
+# the fleet test's intervals (tests/test_accel_fleet.py:455-459)
+FLEET_OVERRIDES = {"accel_beacon_interval": 0.05, "osd_ec_accel_retry_interval": 0.1}
+FLEET_DAEMONS = (("accel.a", "host0"), ("accel.b", "host1"))
+# step 3: degraded pool-A reads whose survivors are labelled mostly host1
+LOCALITY_OPS = 16
+# the mon's markdown of a crashed daemon must reach every router in this
+# long (the connection reset marks it down at once; mon_accel_beacon_grace,
+# 5 s by default, is the bound of the beacon-loss path)
+MARKDOWN_BOUND_S = 5.0
+FLEET_PHASE_LIMIT_S = 600.0
+
+
+def start_mon_process(root: Path, store: str):
+    """The port's mon in its own process, through the daemon tool: a
+    solo mon with a durable store that exits if this process dies.
+    Returns the process, its address and the file its stderr goes to."""
+    import os
+    import select
+
+    err = open(Path(store) / "mon.stderr", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.daemon", "mon", "--rank", "0",
+         "--addr", "127.0.0.1:0", "--monmap", "127.0.0.1:0", "--store", store,
+         "--watch-parent", str(os.getpid())],
+        cwd=root, stdout=subprocess.PIPE, stderr=err, text=True,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (str(root), os.environ.get("PYTHONPATH")) if p)))
+    ready, _, _ = select.select([proc.stdout], [], [], 120)
+    line = proc.stdout.readline() if ready else ""
+    if not line.startswith("mon.0 up at "):
+        proc.kill()
+        proc.wait()
+        err.seek(0)
+        raise AssertionError(f"the mon process did not come up: {line!r} {err.read()[-2000:]}")
+    return proc, line.split()[-1], err
+
+
+def stop_process(proc) -> None:
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def run_accel_fleet(dev, rng, single: dict | None = None) -> dict:
+    """Phase 10 (see the module docstring).  ``single`` holds phase 9's
+    GB/s of the same steps through one daemon, printed beside the
+    fleet's.  Returns the kernels' launch counts over the phase, counted
+    from one reset once the fleet is up (every launch is a daemon's: the
+    OSDs' codecs live on the CPU)."""
+    import asyncio
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.accel import AccelDaemon, AccelRouter
+    from ceph_tpu_torch.common import Config
+    from ceph_tpu_torch.models import registry
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.ec_failover import HEALTHY
+
+    root = Path(__file__).resolve().parent
+    cfg = Config(FLEET_OVERRIDES, env="")
+    SimOsd = sim_osd_class()
+
+    def cpu_pool(spec):
+        plugin, profile, chunk = spec
+        codec = registry.instance().factory(plugin, dict(profile, plugin=plugin),
+                                            device="cpu")
+        return codec, ec_util.StripeInfo(codec.get_data_chunk_count() * chunk, chunk)
+
+    codec_a, sinfo_a = cpu_pool(POOL_A)
+    codec_b, sinfo_b = cpu_pool(POOL_B)
+    objs = [rng.integers(0, 256, size=OSD_OBJECT_SIZE, dtype=np.uint8)
+            for _ in range(OSD_OPS)]
+    objs_b = [np.frombuffer(sinfo_b.pad_to_stripe(o.tobytes()), dtype=np.uint8)
+              for o in objs]
+    total_bytes = OSD_OPS * OSD_OBJECT_SIZE
+    want_a = [ec_util.encode(sinfo_a, codec_a, o) for o in objs]
+    want_b = [ec_util.encode(sinfo_b, codec_b, o) for o in objs_b]
+    launches = {}
+
+    async def main(mon_addr):
+        accs = {}
+        for name, locality in FLEET_DAEMONS:
+            acc = AccelDaemon(name, mon_addr=mon_addr,
+                              config=Config(dict(FLEET_OVERRIDES, accel_locality=locality),
+                                            env=""), device=None)
+            if acc.device != dev:
+                raise AssertionError(f"{name} on {acc.device}, expected {dev}")
+            await acc.start("127.0.0.1", 0)
+            accs[name] = acc
+        osds = [SimOsd(i, cfg, lambda o: AccelRouter(
+            o.messenger, mode="require", deadline=cfg.osd_ec_accel_deadline,
+            retry_interval=cfg.osd_ec_accel_retry_interval,
+            stale_interval=cfg.osd_ec_accel_stale_interval, perf=o.pacc,
+            perf_collection=o.perf))
+            for i in range(ACCEL_OSDS)]
+        t0 = time.perf_counter()
+        for o in osds:
+            await o.subscribe(mon_addr)
+        # 1. both daemons in every router, learned from a map push
+        while any(len(o.remote._map_clients) < len(accs) for o in osds):
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError("the routers never learned the fleet: "
+                                     f"{[o.remote.dump() for o in osds]}")
+            await asyncio.sleep(0.01)
+        amap = await osds[0].command({"prefix": "accel ls"})
+        aid = {e["name"]: int(k) for k, e in amap["accels"].items()}
+        if set(aid) != set(accs) or not all(e["up"] for e in amap["accels"].values()):
+            raise AssertionError(f"the mon's AccelMap: {amap}")
+        epochs = {o.name: o.osdmap.accelmap.epoch for o in osds}
+        if set(epochs.values()) != {amap["epoch"]}:
+            raise AssertionError(f"accelmap epochs: mon {amap['epoch']}, routers {epochs}")
+        for o in osds:
+            if {cl.aid for cl in o.remote._map_clients.values()} != set(aid.values()):
+                raise AssertionError(f"{o.name}: fleet {o.remote.dump()['fleet']}")
+        log(f"  mon.0 (its own process) at {mon_addr}; {', '.join(f'{n} (aid {aid[n]}, '
+            f'locality {loc}) on {accs[n].device} at {accs[n].addr}' for n, loc in FLEET_DAEMONS)}; "
+            f"{ACCEL_OSDS} OSDs (AccelRouter, mode require, codecs on the CPU) hold both, "
+            f"accelmap epoch {amap['epoch']} on the mon and every router "
+            f"({(time.perf_counter() - t0) * 1e3:.1f} ms after subscribing)")
+
+        def snapshot():
+            torch.cuda.synchronize()
+            return dict(gf_cuda.launches)
+
+        def counts(name, since):
+            got = {n: c - since[n] for n, c in snapshot().items()}
+            log(f"  launches in {name}: {got}")
+            return got
+
+        def owner(i, n_osds=ACCEL_OSDS):
+            return osds[i % n_osds]
+
+        async def timed(coros):
+            t0 = time.perf_counter()
+            out = await asyncio.gather(*coros)
+            return out, time.perf_counter() - t0
+
+        def step(name, seconds):
+            log(f"  {name}: {total_bytes / seconds / 1e9:.3f} GB/s ({seconds * 1e3:.1f} ms, "
+                f"host clock, through the fleet); one daemon (phase 9): "
+                f"{(single or {}).get(name, 'not run')}")
+
+        def totals(o):
+            return dict(o.dispatch.dump()["totals"])
+
+        def router_sum(key):
+            return sum(o.remote.totals[key] for o in osds)
+
+        def served():
+            return {n: (a.dispatch.dump()["totals"]["ops"],
+                        a.dispatch.dump()["totals"]["batches"]) for n, a in accs.items()}
+
+        gf_cuda.reset_launches()
+        start = snapshot()
+
+        # 2. pool A: 64 writes, 16 from each OSD, then two degraded reads;
+        # pool B: 64 writes, a four-erasure read
+        got, s = await timed(owner(i).dispatch.encode(sinfo_a, codec_a, o)
+                             for i, o in enumerate(objs))
+        for i, g in enumerate(got):
+            _check_shards(f"fleet pool A op {i}", g, want_a[i])
+        step("pool A encode", s)
+        shards_a = got
+        for lost in ((0,), (1, 5, 9)):
+            outs, s = await timed(
+                owner(i).dispatch.decode_concat(
+                    sinfo_a, codec_a, {k: v for k, v in sh.items() if k not in lost})
+                for i, sh in enumerate(shards_a))
+            for i, (o, out) in enumerate(zip(objs, outs)):
+                if bytes(out) != o.tobytes():
+                    raise AssertionError(f"fleet pool A op {i}: decode of {lost} differs")
+            step(f"pool A decode {list(lost)}", s)
+        launches["pool A"] = counts("pool A", start)
+        if launches["pool A"]["gf_matmul"] == 0:
+            raise AssertionError("gf_matmul was not launched by the fleet in pool A")
+        since = snapshot()
+        got, s = await timed(owner(i).dispatch.encode(sinfo_b, codec_b, o)
+                             for i, o in enumerate(objs_b))
+        for i, g in enumerate(got):
+            _check_shards(f"fleet pool B op {i}", g, want_b[i])
+        step("pool B encode", s)
+        lost = (0, 4, 11, 13)
+        outs, s = await timed(
+            owner(i).dispatch.decode_concat(
+                sinfo_b, codec_b, {k: v for k, v in sh.items() if k not in lost})
+            for i, sh in enumerate(got))
+        for i, (o, out) in enumerate(zip(objs_b, outs)):
+            if bytes(out) != o.tobytes():
+                raise AssertionError(f"fleet pool B op {i}: decode of {lost} differs")
+        step(f"pool B decode {list(lost)}", s)
+        del got, outs
+        launches["pool B"] = counts("pool B", since)
+        if launches["pool B"]["bitmatrix_xor"] == 0:
+            raise AssertionError("bitmatrix_xor was not launched by the fleet in pool B")
+        for o in osds:
+            t = totals(o)
+            if t["lanes"]["remote"]["ops"] != 5 * OSD_OPS // ACCEL_OSDS or \
+                    t["lanes"]["device"]["ops"] or t["failovers"] or \
+                    t["fallback_direct"] or t["native_direct"]:
+                raise AssertionError(f"{o.name}: an op left the fleet: {t}")
+        for n, a in accs.items():
+            t = a.dispatch.dump()["totals"]
+            if t["failovers"] or t["fallback_direct"] or t["native_direct"] or \
+                    t["deadline_timeouts"]:
+                raise AssertionError(f"{n}: ops served off the card: {t}")
+        share = served()
+        split = {}
+        for o in osds:
+            for a in o.remote._map_clients:
+                fam = o.perf.get(f"accel@{a}")
+                split[a] = split.get(a, 0) + fam.get("remote_batches")
+        agg = sum(o.pacc.get("remote_batches") for o in osds)
+        if sum(split.values()) != agg:
+            raise AssertionError(f"accel@<id> split {split} does not sum to {agg}")
+        log(f"  per daemon (member ops, launches): {share}; the routers' accel@<id> split "
+            f"of {agg} batches: {split}; rebalances {router_sum('rebalances')} (a target is "
+            f"kept while its load is within the router's hysteresis of the best)")
+
+        # 3. a locality-labelled decode: survivors mostly on host1
+        before = {k: router_sum(k) for k in ("locality_hits", "locality_misses")}
+        ops_b = served()["accel.b"][0]
+        ops_a = served()["accel.a"][0]
+        survivors = [k for k in range(len(want_a[0])) if k not in (1, 5, 9)]
+        labels = ["host1"] * (len(survivors) - 2) + ["host0"] * 2
+        outs, s = await timed(
+            owner(i).dispatch.decode_concat(
+                sinfo_a, codec_a, {k: shards_a[i][k] for k in survivors}, locality=labels)
+            for i in range(LOCALITY_OPS))
+        for i, out in enumerate(outs):
+            if bytes(out) != objs[i].tobytes():
+                raise AssertionError(f"locality decode op {i} differs")
+        hits = router_sum("locality_hits") - before["locality_hits"]
+        misses = router_sum("locality_misses") - before["locality_misses"]
+        if hits == 0 or misses or served()["accel.a"][0] != ops_a or \
+                served()["accel.b"][0] - ops_b != LOCALITY_OPS:
+            raise AssertionError(f"locality decode: hits {hits}, misses {misses}, "
+                                 f"served {served()}")
+        log(f"  locality: {LOCALITY_OPS} degraded reads labelled mostly host1 all served by "
+            f"accel.b: {hits} locality hits, {misses} misses ({s * 1e3:.1f} ms); per daemon "
+            f"(member ops, launches): {served()}")
+
+        # 4. accel.a dies with 8 pool-A reads from 2 OSDs in flight on it
+        # (their survivors labelled host0, so every router sends them to it)
+        victim, survivor = accs["accel.a"], accs["accel.b"]
+        victim.dispatch.inject_launch_hang = FAILOVER_HOLD_S
+        before = {o.name: totals(o) for o in osds}
+        hop = router_sum("failover_next")
+        ops_b = served()["accel.b"][0]
+        labels = ["host0"] * len(survivors)
+        tasks = [asyncio.ensure_future(owner(i, FAILOVER_OSDS).dispatch.decode_concat(
+            sinfo_a, codec_a, {k: shards_a[i][k] for k in survivors}, locality=labels))
+            for i in range(FAILOVER_OPS)]
+        t0 = time.perf_counter()
+        while not victim.dispatch.dump()["inflight_launches"]:
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError("the failover batch never reached accel.a's card")
+            await asyncio.sleep(0.001)
+        t_kill = time.perf_counter()
+        kill = asyncio.ensure_future(victim.stop(crash=True))
+        outs = await asyncio.gather(*tasks)
+        t_served = time.perf_counter() - t_kill
+        await kill
+        for i, out in enumerate(outs):
+            if bytes(out) != objs[i].tobytes():
+                raise AssertionError(f"failed-over op {i} differs")
+        hops = router_sum("failover_next") - hop
+        moved = served()["accel.b"][0] - ops_b
+        for o in osds:
+            t = totals(o)
+            if t["failovers"] != before[o.name]["failovers"] or \
+                    t["replayed_ops"] != before[o.name]["replayed_ops"]:
+                raise AssertionError(f"{o.name}: a local replay in the failover: {t}")
+            if o.sup.state != HEALTHY:
+                raise AssertionError(f"{o.name}: the local breaker moved: {o.sup.dump()}")
+        if hops < 1 or moved != FAILOVER_OPS:
+            raise AssertionError(f"failover: {hops} hops, accel.b served {moved} ops")
+        while any(aid["accel.a"] not in o.dropped for o in osds):
+            if time.perf_counter() - t_kill > MARKDOWN_BOUND_S:
+                raise AssertionError(f"the markdown did not reach every router in "
+                                     f"{MARKDOWN_BOUND_S} s: {[o.dropped for o in osds]}")
+            await asyncio.sleep(0.001)
+        spread = [o.dropped[aid["accel.a"]] - t_kill for o in osds]
+        amap = await osds[0].command({"prefix": "accel ls"})
+        if amap["accels"][str(aid["accel.a"])]["up"]:
+            raise AssertionError(f"the mon did not mark accel.a down: {amap}")
+        log(f"  failover: accel.a crashed with {FAILOVER_OPS} reads from {FAILOVER_OSDS} OSDs "
+            f"in flight; accel.b served all {moved} ({t_served * 1e3:.1f} ms from the kill), "
+            f"failover_next {hops}, no local replay, local breakers HEALTHY")
+        log(f"  markdown: the mon marked accel.a down (accelmap epoch {amap['epoch']}); the "
+            f"push reached the routers {min(spread) * 1e3:.3f} to {max(spread) * 1e3:.3f} ms "
+            f"after the kill (bound {MARKDOWN_BOUND_S} s)")
+        launches["phase"] = counts("the phase", start)
+
+        # 5. the whole fleet down: accel.b dies with 8 reads in flight
+        survivor.dispatch.inject_launch_hang = FAILOVER_HOLD_S
+        before = {o.name: totals(o) for o in osds}
+        tasks = [asyncio.ensure_future(owner(i, FAILOVER_OSDS).dispatch.decode_concat(
+            sinfo_a, codec_a, {k: shards_a[i][k] for k in survivors}))
+            for i in range(FAILOVER_OPS)]
+        t0 = time.perf_counter()
+        while not survivor.dispatch.dump()["inflight_launches"]:
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError("the last batch never reached accel.b's card")
+            await asyncio.sleep(0.001)
+        await survivor.stop(crash=True)
+        outs = await asyncio.gather(*tasks)
+        for i, out in enumerate(outs):
+            if bytes(out) != objs[i].tobytes():
+                raise AssertionError(f"replayed op {i} differs")
+        replayed = sum(totals(o)["replayed_ops"] - before[o.name]["replayed_ops"]
+                       for o in osds)
+        for o in osds[:FAILOVER_OSDS]:
+            recs = o.dispatch.flight.dump()["launches"][-1:]
+            if not recs or (recs[0]["served"], recs[0].get("origin")) != ("fallback", "remote"):
+                raise AssertionError(f"{o.name}: last flight record {recs}")
+        t0 = time.perf_counter()
+        while not all(o.remote.unreachable for o in osds):
+            if time.perf_counter() - t0 > MARKDOWN_BOUND_S:
+                raise AssertionError(f"whole fleet down: unreachable "
+                                     f"{[o.remote.unreachable for o in osds]}")
+            await asyncio.sleep(0.001)
+        if replayed != FAILOVER_OPS:
+            raise AssertionError(f"whole fleet down: {replayed} ops replayed, expected "
+                                 f"{FAILOVER_OPS}")
+        log(f"  whole fleet down: accel.b crashed with {FAILOVER_OPS} reads in flight; all "
+            f"replayed on the OSDs' host engines (origin=remote), bytes == originals; every "
+            f"router reads unreachable")
+        for o in osds:
+            await o.stop()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mon_") as store:
+        proc, mon_addr, err = start_mon_process(root, store)
+        try:
+            asyncio.run(asyncio.wait_for(main(mon_addr), FLEET_PHASE_LIMIT_S))
+            if proc.poll() is not None:
+                raise AssertionError(f"the mon process exited with {proc.returncode}")
+        finally:
+            stop_process(proc)
+            err.close()
+    return launches["phase"]
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "ceph_tpu_torch" / "__init__.py").exists():
@@ -1857,11 +2288,16 @@ def main() -> int:
     churn_launches = run_churn(dev, rng)
 
     log("== 9. shared accelerator service")
-    accel_launches = run_accel_service(dev, rng, osd_figures)
+    service_figures = {}
+    accel_launches = run_accel_service(dev, rng, osd_figures, service_figures)
+
+    log("== 10. accelerator fleet behind the mon")
+    fleet_launches = run_accel_fleet(dev, rng, service_figures)
     for row in rows:
         row["launches_osd_engine"] = osd_launches[row["name"]]
         row["launches_churn"] = churn_launches[row["name"]]
         row["launches_accel_service"] = accel_launches[row["name"]]
+        row["launches_accel_fleet"] = fleet_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

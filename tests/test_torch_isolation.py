@@ -13,9 +13,10 @@
   fault instead of falling back to the scalar walk.
 - The accelerator daemon owns the card: ``AccelDaemon()`` and the
   ``accel`` role of ``tools.daemon`` raise without CUDA unless given the
-  CPU, and the options of the daemon that are not ported yet
-  (``mon_addr``, ``admin_socket``, ``osd_ec_mesh``) raise
-  ``NotImplementedError`` instead of being ignored.
+  CPU, with a mon (``mon_addr``, ``--monmap``) too, and the options of
+  the daemon that are not ported yet (``admin_socket``, ``osd_ec_mesh``)
+  raise ``NotImplementedError`` instead of being ignored, with or
+  without a mon; so does the ``osd`` role of ``tools.daemon``.
 """
 
 import pathlib
@@ -97,6 +98,9 @@ _SLICE_MODULES = {
     "ceph_tpu_torch.osd.scheduler", "ceph_tpu_torch.accel.client",
     "ceph_tpu_torch.accel.daemon", "ceph_tpu_torch.tools.daemon",
     "ceph_tpu_torch.tools.wire_profile",
+    # the Monitor and the accelerator fleet
+    "ceph_tpu_torch.mon.monitor", "ceph_tpu_torch.accel.router",
+    "ceph_tpu_torch.tools.monmaptool",
 }
 
 
@@ -112,7 +116,7 @@ def test_port_imports_without_jax_or_ceph_tpu():
     )
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 56  # every module of the package
+    assert len(names) >= 80  # every module of the package
     assert _SLICE_MODULES <= names, _SLICE_MODULES - names
 
 
@@ -259,15 +263,16 @@ def test_accel_role_of_the_daemon_tool_raises_without_cuda():
 
     with pytest.raises(DeviceUnavailableError):
         daemon.main(["accel", "--id", "0", "--addr", "127.0.0.1:0"])
-    for role in (["mon", "--rank", "0", "--addr", "127.0.0.1:0",
-                  "--monmap", "127.0.0.1:1", "--store", "s"],
-                 ["osd", "--id", "0", "--monmap", "127.0.0.1:1",
-                  "--store", "s"]):
-        with pytest.raises(NotImplementedError):
-            daemon.main(role)
-    with pytest.raises(NotImplementedError, match="not supported"):
+    # a mon does not move the daemon off the card
+    with pytest.raises(DeviceUnavailableError):
         daemon.main(["accel", "--id", "0", "--addr", "127.0.0.1:0",
-                     "--device", "cpu", "--monmap", "127.0.0.1:1"])
+                     "--monmap", "127.0.0.1:1", "--locality", "host0"])
+    with pytest.raises(NotImplementedError):
+        daemon.main(["osd", "--id", "0", "--monmap", "127.0.0.1:1",
+                     "--store", "s"])
+    # the mon role is ported: its arguments are checked, not refused
+    with pytest.raises(SystemExit):
+        daemon.main(["mon", "--rank", "0"])
 
 
 def test_accel_role_serves_on_the_cpu_when_asked():
@@ -297,11 +302,17 @@ def test_accel_role_serves_on_the_cpu_when_asked():
 
 @pytest.mark.parametrize("what", ["mon_addr", "admin_socket", "osd_ec_mesh"])
 def test_accel_daemon_refuses_what_is_not_ported(what):
+    """``admin_socket`` and ``osd_ec_mesh`` are refused.  ``mon_addr`` is
+    ported: the daemon takes it, and with it still refuses the options
+    that are not ported."""
     from ceph_tpu_torch.accel import AccelDaemon
     from ceph_tpu_torch.common import Config
 
     if what == "mon_addr":
-        kw = {"mon_addr": "127.0.0.1:1"}
+        acc = AccelDaemon("accel.9", device="cpu", mon_addr="127.0.0.1:1")
+        assert acc.mon_addr == "127.0.0.1:1" and acc.device.type == "cpu"
+        kw = {"mon_addr": ["127.0.0.1:1"],
+              "config": Config({"osd_ec_mesh": True}, env="")}
     else:
         kw = {"config": Config({what: "/tmp/x.asok" if what == "admin_socket"
                                 else True}, env="")}
