@@ -7,8 +7,16 @@ on CUDA (and raises ``DeviceUnavailableError`` without it);
 package's registry on that device, so an ISA / Reed-Solomon batch runs
 ``gf_matmul`` and a bit-matrix batch runs ``bitmatrix_xor`` on the card.
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the ``admin_socket`` option (the admin socket, ROADMAP Queue A
-item 10) and the ``osd_ec_mesh`` option (the mesh lane, item 8).
+ignored: the ``osd_ec_mesh`` option (the mesh lane, ROADMAP Queue A
+item 8).
+
+The ``admin_socket`` option serves the reference's commands
+(``dump_ec_dispatch``, ``dump_launch_history``, ``dump_engine_health``,
+``dump_op_pq_state``, ``dump_watchdog``, ``status``) and the common set
+(``perf dump``, ``dump_kernel_profile``, ``config show``, ...), among
+them ``kernel trace start|stop|status|dump``: a ``torch.profiler``
+window on the daemon's device that attributes each kernel and copy on
+the card to the codec engine that launched it (``ops/device_trace.py``).
 
 One standalone process keeps persistent device state (codecs, their
 matrices, built kernels) resident and amortizes device cost across the
@@ -85,7 +93,6 @@ EIO = 5
 _CLIENT_FRESH_S = 30.0
 
 _NOT_PORTED = {
-    "admin_socket": "the admin socket waits for ROADMAP Queue A item 10",
     "osd_ec_mesh": "the mesh lane waits for ROADMAP Queue A item 8 "
                    "(multi-device EC)",
 }
@@ -109,11 +116,9 @@ class AccelDaemon(Dispatcher):
 
         self.config = config or Config()
         cfg = self.config
-        for what, refused in (("admin_socket", cfg.admin_socket),
-                              ("osd_ec_mesh", cfg.osd_ec_mesh)):
-            if refused:
-                raise NotImplementedError(
-                    f"{what} is not supported: {_NOT_PORTED[what]}")
+        if cfg.osd_ec_mesh:
+            raise NotImplementedError(
+                f"osd_ec_mesh is not supported: {_NOT_PORTED['osd_ec_mesh']}")
         self.device = resolve(device)
         _install_memlog()
         self.name = name
@@ -214,6 +219,7 @@ class AccelDaemon(Dispatcher):
         self._beacon_task: asyncio.Task | None = None
         self._report_task: asyncio.Task | None = None
         self._stopping = False
+        self._admin = None
         self._mon_conn: Connection | None = None
         # live knobs (tracked so stop() unregisters; a shared Config
         # must not keep firing actions on dead daemons)
@@ -281,8 +287,66 @@ class AccelDaemon(Dispatcher):
                 logger.warning("%s: no mon reachable at start (%r); "
                                "registration deferred", self.name, e)
         self._report_task = asyncio.ensure_future(self._report_loop())
+        await self._start_admin_socket()
         logger.info("%s: serving EC batches at %s", self.name, self.addr)
         return self.addr
+
+    async def _start_admin_socket(self) -> None:
+        """The ``admin_socket`` option (``{name}`` expands to the
+        daemon's name): the reference's accelerator commands and the
+        common set, its ``kernel trace`` windows on this daemon's
+        device."""
+        path = self.config.admin_socket
+        if not path:
+            return
+        from ..common import AdminSocket, register_common
+
+        self._admin = AdminSocket(path.replace("{name}", self.name))
+        a = self._admin
+        register_common(a, perf=self.perf, config=self.config,
+                        device=self.device)
+        a.register(
+            "dump_ec_dispatch",
+            lambda req: self.dispatch.dump(),
+            "EC microbatch dispatcher: open batches, flush reasons, "
+            "pad waste, observed bucket table (cross-client totals)",
+        )
+        a.register(
+            "dump_launch_history",
+            lambda req: self.dispatch.flight.dump(),
+            "device-launch flight recorder: the last N launches (lane, "
+            "QoS class, client OSDs that shared the launch, queue-wait "
+            "vs device wall, slowest member trace id)",
+        )
+        a.register(
+            "dump_engine_health",
+            lambda req: self.dispatch.engine_health(),
+            "EC engine health state machine: breaker state, probe "
+            "backoff, failure history, failover totals",
+        )
+        a.register(
+            "dump_op_pq_state",
+            lambda req: self.scheduler.dump(),
+            "this accelerator's dmClock instance: per-class specs, "
+            "queues, pacing state",
+        )
+        a.register(
+            "dump_watchdog",
+            lambda req: self.hb_map.dump(),
+            "HeartbeatMap worker deadlines",
+        )
+        a.register(
+            "status",
+            lambda req: {
+                "name": self.name,
+                "addr": self.addr,
+                "clients": self.client_table(),
+                "queue_depth": self.queue_depth(),
+                "engine_state": self.supervisor.state,
+            },
+            "daemon identity, connected clients, queue depth",
+        )
+        await a.start()
 
     @property
     def _mon_addrs(self) -> list[str]:
@@ -352,6 +416,9 @@ class AccelDaemon(Dispatcher):
         # flushes, so doomed waiters drop instead of launching
         await asyncio.sleep(0)
         await self.dispatch.stop()
+        if self._admin is not None:
+            await self._admin.stop()
+            self._admin = None
         if not crash:
             await self.messenger.shutdown()
 

@@ -1,9 +1,9 @@
 """Monitor: authoritative OSDMap service, single- or multi-mon.
 
-Counterpart of ``ceph_tpu/mon/monitor.py``, whole but for the admin
-socket: the ``admin_socket`` option is refused with
-``NotImplementedError`` (ROADMAP Queue A item 10), as the accelerator
-daemon refuses it.  The mon has no card.  The EC profile check builds
+Counterpart of ``ceph_tpu/mon/monitor.py``, whole, its admin socket
+(``admin_socket``: ``status``, ``quorum_status`` and the common set)
+included.  The mon has no card: its ``kernel trace`` windows are
+host-only.  The EC profile check builds
 the codec on the host (``device="cpu"``): it only proves the profile
 valid, and the mon encodes nothing.  Its wire, its store and its map
 are the reference's, so port and reference mons, daemons and clients
@@ -119,10 +119,6 @@ class Monitor(Dispatcher):
         from ..common import Config
 
         self.config = config or Config()
-        if self.config.admin_socket:
-            raise NotImplementedError(
-                "admin_socket is not supported: the admin socket waits "
-                "for ROADMAP Queue A item 10")
         from ..common.log import install as _install_memlog
 
         _install_memlog()
@@ -131,7 +127,7 @@ class Monitor(Dispatcher):
         self.messenger.apply_config(self.config)
         # observability (the reference mon's l_mon_* / paxos counters +
         # rocksdb perf): elections, map publishes, command volume —
-        # reported to the active mgr (the admin socket waits for A10)
+        # dumped over the admin socket and reported to the active mgr
         from ..common import PerfCountersCollection
 
         self.perf = PerfCountersCollection()
@@ -154,6 +150,7 @@ class Monitor(Dispatcher):
          .add_gauge("accelmap_epoch", "current accelmap epoch")
          .add_gauge("accels_up", "registered accelerators currently up"))
         self._mgr_report_last = 0.0
+        self._admin = None
         self.failure_min_reporters = (
             self.config.mon_failure_min_reporters
             if failure_min_reporters is None else failure_min_reporters
@@ -302,7 +299,33 @@ class Monitor(Dispatcher):
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> str:
         self.addr = await self.messenger.bind(host, port)
         self._tick_task = _bg(self._tick_loop())
+        await self._start_admin_socket()
         return self.addr
+
+    async def _start_admin_socket(self) -> None:
+        """`ceph daemon mon.N <cmd>` surface (the mon has the same
+        admin-socket contract as the OSD in the reference)."""
+        path = self.config.admin_socket
+        if not path:
+            return
+        from ..common import AdminSocket, register_common
+
+        self._admin = AdminSocket(path.replace("{name}", self.name))
+        register_common(self._admin, perf=self.perf, config=self.config,
+                        device="cpu")
+        self._admin.register(
+            "status",
+            lambda req: {
+                "name": self.name, "addr": self.addr, "rank": self.rank,
+                "epoch": self.osdmap.epoch, "leader": self.is_leader,
+            },
+            "daemon identity, rank and map epoch",
+        )
+        self._admin.register(
+            "quorum_status", lambda req: self._cmd_quorum_status({})[2],
+            "quorum membership and leader",
+        )
+        await self._admin.start()
 
     async def _tick_loop(self) -> None:
         """Periodic housekeeping (Monitor::tick): mgr-beacon staleness
@@ -368,6 +391,9 @@ class Monitor(Dispatcher):
                 t.cancel()
         self._lease_task = self._watch_task = self._election_task = None
         self._tick_task = None
+        if self._admin is not None:
+            await self._admin.stop()
+            self._admin = None
         await self.messenger.shutdown()
         if self._clog_buf and self.store_path:
             # a clean shutdown must not drop the batch window's worth of

@@ -27,6 +27,12 @@ output, so the two packages' ``dump_kernel_profile`` bodies read alike:
   waiting for the card.
 - **per-engine batch shapes** and **per-engine latency histograms**
   (bytes x seconds, log2), served by ``dump_histograms``.
+- **the trace-window tap**: while an ``ops.device_trace`` window is
+  open (``trace_sink``), every call reports its engine, key and HOST
+  interval to the window at call time — for a CUDA call too, whose
+  device time is read later — and :meth:`KernelProfiler.merge_device_time`
+  folds a closed window's per-engine buckets back in, served as each
+  engine's ``device_trace`` in ``dump``.
 
 Import-light: torch is imported only where a CUDA call is timed.
 """
@@ -49,7 +55,7 @@ _KERNEL_AXES = dict(size_min=4096.0, lat_min=1e-6)
 class _EngineStats:
     __slots__ = ("calls", "compile_calls", "cache_hits", "compile_time",
                  "exec_time", "bytes", "exec_bytes", "shapes", "hist",
-                 "first_exec_time", "first_execs")
+                 "first_exec_time", "first_execs", "device")
 
     def __init__(self):
         self.calls = 0
@@ -67,6 +73,9 @@ class _EngineStats:
         # neither stat lies
         self.first_exec_time = 0.0
         self.first_execs = 0
+        # per-bucket device-event seconds merged from closed trace
+        # windows (ops.device_trace): fused_op / dma / collective
+        self.device: dict[str, float] = {}
 
 
 class KernelProfiler:
@@ -93,17 +102,26 @@ class KernelProfiler:
         # creating one costs more than recording it)
         self._pending: deque = deque()
         self._free: dict[Any, list] = {}
+        # ops.device_trace window sink: while a trace window is open,
+        # every call reports its (engine, key, host interval) for
+        # per-engine attribution of the captured device events.  One
+        # attribute read when no window exists — zero-cost default.
+        self.trace_sink: Any = None
 
     # -- recording -----------------------------------------------------------
     def record(self, engine: str, key: Hashable, seconds: float,
                nbytes: int = 0, shape: Any = None,
-               compiled: bool | None = None) -> None:
+               compiled: bool | None = None, noted: bool = False) -> None:
         """``compiled`` overrides the first-sighting classification for
         callers that know (``compiled=False`` records a steady-state
         call, ``compiled=True`` a pure build).  An un-overridden first
         sighting lands in the ``first_exec`` bucket: its wall time fuses
         the one-time work with the first execution, so folding it into
-        either compile_time or exec_time would lie."""
+        either compile_time or exec_time would lie.  A call that ended
+        just now is reported to an open trace window as the interval of
+        ``seconds`` ending now; ``noted`` says the caller reported it
+        already (a CUDA call, recorded when the card has passed it)."""
+        t_end = time.perf_counter()
         sig = (engine, key)
         with self._lock:
             st = self._engines.get(engine)
@@ -131,6 +149,18 @@ class KernelProfiler:
                     s = _shape_names[shape] = str(shape)
                 st.shapes[s] = st.shapes.get(s, 0) + 1
         st.hist.sample(max(float(nbytes), 0.0), seconds)
+        if not noted:
+            self._note(engine, key, seconds, nbytes, t_end)
+
+    def _note(self, engine: str, key: Hashable, seconds: float,
+              nbytes: int, t_end: float) -> None:
+        sink = self.trace_sink
+        if sink is not None and sink.active:
+            try:
+                sink.note_kernel(engine, key, seconds, nbytes=nbytes,
+                                 t_end_pc=t_end)
+            except Exception:  # pragma: no cover - observability only
+                pass
 
     @contextlib.contextmanager
     def timed(self, engine: str, key: Hashable, nbytes: int = 0,
@@ -173,6 +203,10 @@ class KernelProfiler:
             self.record(engine, key, seconds, nbytes=nbytes, shape=shape)
         else:
             events[1].record(stream)
+            # the host interval goes to an open window now: the kernels
+            # this call issued were launched inside it
+            t1 = time.perf_counter()
+            self._note(engine, key, t1 - t0, nbytes, t1)
             with self._lock:
                 self._pending.append(
                     (engine, key, device, events, nbytes, shape))
@@ -202,11 +236,29 @@ class KernelProfiler:
                 self._pending.popleft()
             end.synchronize()
             self.record(engine, key, start.elapsed_time(end) / 1e3,
-                        nbytes=nbytes, shape=shape)
+                        nbytes=nbytes, shape=shape, noted=True)
             with self._lock:
                 free = self._free.setdefault(device, [])
                 if len(free) < _FREE_EVENT_PAIRS:
                     free.append((start, end))
+
+    def merge_device_time(self,
+                          per_engine: dict[str, dict[str, float]]) -> None:
+        """Fold a closed trace window's per-engine device-event buckets
+        (ops.device_trace: fused_op / dma / collective seconds) into
+        the matching engine entries, so ``dump_kernel_profile`` answers
+        "where did the device time go?" next to the call stats.
+        Accumulates across windows; cleared by :meth:`reset` like every
+        other per-engine stat."""
+        with self._lock:
+            for engine, buckets in per_engine.items():
+                st = self._engines.get(engine)
+                if st is None:
+                    st = self._engines[engine] = _EngineStats()
+                for bucket, seconds in buckets.items():
+                    st.device[bucket] = (
+                        st.device.get(bucket, 0.0) + float(seconds)
+                    )
 
     # -- views ---------------------------------------------------------------
     @staticmethod
@@ -262,6 +314,13 @@ class KernelProfiler:
                         self._engine_seconds(st) / total_s, 4
                     ) if total_s > 0 else 0.0,
                     "shapes": dict(st.shapes),
+                    # per-bucket device-event seconds from the trace
+                    # window(s) (ops.device_trace merge); absent until
+                    # a window captured this engine
+                    **({"device_trace": {
+                        b: round(v, 6)
+                        for b, v in sorted(st.device.items())
+                    }} if st.device else {}),
                 }
             return {
                 "since": self._reset_at,

@@ -280,7 +280,8 @@ class ECDispatcher:
         # device-launch flight recorder (ops.device_trace): the last N
         # launches with lane / batch key / QoS class / queue-wait vs
         # device wall / slowest member trace id, served by
-        # dump_launch_history
+        # dump_launch_history and consulted by the SLOW_OPS dump path
+        # (OpTracker.launch_lookup = this flight.lookup)
         self.flight = FlightRecorder(capacity=launch_history)
 
     # -- public API ----------------------------------------------------------

@@ -15,6 +15,13 @@ Counterpart of ``ceph_tpu/tools/daemon.py``, of which the ``mon`` and
   without ``--device cpu`` it raises ``DeviceUnavailableError`` when CUDA
   is absent.
 
+Both roles read their options from the environment, as every
+``Config()`` does (``CEPH_TPU_ARGS='--name value ...'``,
+``common/config.py``), with no flag of their own:
+``CEPH_TPU_ARGS='--admin_socket /run/{name}.asok'`` serves each
+daemon's admin socket at that path, ``{name}`` expanded to
+``mon.<rank>`` or ``accel.<id>``.
+
 ``--monmap`` takes one address, a comma list, or a monmap file written
 by ``tools/monmaptool.py``.  ``--watch-parent PID`` makes the daemon exit
 when that process dies, so a harness never leaks daemons.  The ``osd``

@@ -136,13 +136,36 @@ Phases, each fatal on any mismatch or exception:
    with 8 reads in flight, which replay on the OSDs (``origin=remote``),
    and every router reads unreachable.  Each step's GB/s is printed
    beside phase 9's.  The phase runs under ``asyncio.wait_for`` and
-   stops the mon process.
+   stops the mon process;
+11. the operator surface: the port's mon in its own process with a
+   store and an admin socket (``CEPH_TPU_ARGS='--admin_socket ...'``),
+   ``accel.a`` on the card with an admin socket, registered through the
+   mon, and 4 OSD routers as in phase 10.  With the launch counts set to
+   0: ``kernel trace start`` over the daemon's socket (600 s asked,
+   clamped to ``kernel_trace_max_duration`` 60 s; a second start must be
+   refused), phase 6's pools A and B encoded through it (every byte
+   checked), ``kernel trace stop`` and ``dump``.  The dump must show
+   kernel and copy seconds, ``gf_matmul_kernel`` and
+   ``bitmatrix_xor_kernel`` among its top ops and more than half of its
+   device seconds attributed to engines, and ``dump_kernel_profile``
+   the same engines' merged ``device_trace`` buckets; it prints the
+   buckets, the top ops, the occupancy and the card's idle share (the
+   union of the captured CUDA intervals over the window's wall).  Then
+   the daemon's ``dump_launch_history``, ``status`` and ``perf dump``
+   over the socket must equal its own objects read around them, and the
+   mon's ``perf dump`` and ``config show`` answer.  Last, two
+   ``MgrDaemon``s in this process: ``mgr.x`` active from its beacon,
+   ``accel.a``'s ``MDaemonStats`` there within 5 report intervals, its
+   ``ec`` counters once each in the prometheus ``metrics``, and after
+   ``mgr fail mgr.x`` ``mgr.y`` active with the reports following it.
+   The phase runs under ``asyncio.wait_for`` and stops the mon process.
 
 Output: the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on its main path, phase 4 or 7, with ``launches_osd_engine``
 from phase 6, ``launches_churn`` from phase 8,
-``launches_accel_service`` from phase 9 and ``launches_accel_fleet``
-from phase 10 beside it), and last
+``launches_accel_service`` from phase 9, ``launches_accel_fleet``
+from phase 10 and ``launches_observability`` from phase 11 beside it),
+and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -1883,10 +1906,12 @@ MARKDOWN_BOUND_S = 5.0
 FLEET_PHASE_LIMIT_S = 600.0
 
 
-def start_mon_process(root: Path, store: str):
+def start_mon_process(root: Path, store: str, options: str = ""):
     """The port's mon in its own process, through the daemon tool: a
     solo mon with a durable store that exits if this process dies.
-    Returns the process, its address and the file its stderr goes to."""
+    ``options`` reach it through ``CEPH_TPU_ARGS`` (``--name value``
+    pairs).  Returns the process, its address and the file its stderr
+    goes to."""
     import os
     import select
 
@@ -1896,7 +1921,7 @@ def start_mon_process(root: Path, store: str):
          "--addr", "127.0.0.1:0", "--monmap", "127.0.0.1:0", "--store", store,
          "--watch-parent", str(os.getpid())],
         cwd=root, stdout=subprocess.PIPE, stderr=err, text=True,
-        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+        env=dict(os.environ, CEPH_TPU_ARGS=options, PYTHONPATH=os.pathsep.join(
             p for p in (str(root), os.environ.get("PYTHONPATH")) if p)))
     ready, _, _ = select.select([proc.stdout], [], [], 120)
     line = proc.stdout.readline() if ready else ""
@@ -2222,6 +2247,301 @@ def run_accel_fleet(dev, rng, single: dict | None = None) -> dict:
     return launches["phase"]
 
 
+# -- phase 11: the operator surface --------------------------------------------------
+
+
+# the window asks for longer than kernel_trace_max_duration allows, and
+# must come back clamped to it
+TRACE_MAX_S = 60.0
+TRACE_ASK_S = 600.0
+# accel.a's MDaemonStats must reach the active mgr within this many
+# report intervals of the daemon's map naming it
+REPORT_INTERVALS = 5
+OBS_PHASE_LIMIT_S = 600.0
+# the kernels the trace window must name among its top ops
+TRACE_KERNELS = ("gf_matmul_kernel", "bitmatrix_xor_kernel")
+
+
+def _leaves(obj, path=()):
+    """Every leaf of a JSON body, by its path."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from _leaves(v, path + (str(k),))
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, obj
+
+
+def check_between(what: str, got, before, after) -> None:
+    """``got`` was read over a socket between two in-process reads of
+    the same body: the same leaves, each number within the two reads'
+    range (counters and ages move while the daemon runs), anything else
+    equal to one of them."""
+    def norm(body):
+        return dict(_leaves(json.loads(json.dumps(body))))
+
+    g, b, a = norm(got), norm(before), norm(after)
+    if set(g) != set(b) or set(g) != set(a):
+        raise AssertionError(f"{what}: the socket's body has other keys: "
+                             f"{sorted(set(g) ^ set(b))[:10]}")
+    for k, v in g.items():
+        lo, hi = b[k], a[k]
+        if isinstance(v, (int, float)) and not isinstance(v, bool) and \
+                isinstance(lo, (int, float)) and isinstance(hi, (int, float)):
+            if not min(lo, hi) <= v <= max(lo, hi):
+                raise AssertionError(f"{what}: {k} = {v} over the socket, "
+                                     f"{lo} and {hi} in process")
+        elif v != lo and v != hi:
+            raise AssertionError(f"{what}: {k} = {v!r} over the socket, "
+                                 f"{lo!r} and {hi!r} in process")
+
+
+def check_trace_window(result: dict) -> float:
+    """The window's dump must show the card's work: kernel and copy
+    seconds, both EC kernels among its top ops, and more than half of
+    its device seconds attributed to the engines that launched them.
+    Returns the attributed share."""
+    if "error" in result or "unavailable" in result:
+        raise AssertionError(f"the trace window failed: {result}")
+    b = result["buckets"]
+    if not b["fused_op"] > 0 or not b["dma"] > 0:
+        raise AssertionError(f"trace buckets {b}: no kernel or no copy time")
+    names = [op["name"] for op in result["top_ops"]]
+    for k in TRACE_KERNELS:
+        if not any(k in n for n in names):
+            raise AssertionError(f"{k} is not among the window's top ops: {names}")
+    attributed = sum(e["seconds"] for e in result["engines"].values())
+    share = attributed / result["device_seconds"]
+    if share <= 0.5:
+        raise AssertionError(f"only {share:.3f} of the device seconds attributed to "
+                             f"engines: {result['engines']} {result['unattributed']}")
+    return share
+
+
+def run_observability(dev, rng) -> dict:
+    """Phase 11 (see the module docstring).  Returns the kernels' launch
+    counts over the phase's steps."""
+    import asyncio
+    import os
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.accel import AccelDaemon, AccelRouter
+    from ceph_tpu_torch.common import Config, admin_command
+    from ceph_tpu_torch.mgr import MgrDaemon
+    from ceph_tpu_torch.models import registry
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.ops.device_trace import busy_seconds, tracer
+    from ceph_tpu_torch.osd import ec_util
+
+    root = Path(__file__).resolve().parent
+    cfg = Config(FLEET_OVERRIDES, env="")
+    SimOsd = sim_osd_class()
+
+    def cpu_pool(spec):
+        plugin, profile, chunk = spec
+        codec = registry.instance().factory(plugin, dict(profile, plugin=plugin),
+                                            device="cpu")
+        return codec, ec_util.StripeInfo(codec.get_data_chunk_count() * chunk, chunk)
+
+    codec_a, sinfo_a = cpu_pool(POOL_A)
+    codec_b, sinfo_b = cpu_pool(POOL_B)
+    objs = [rng.integers(0, 256, size=OSD_OBJECT_SIZE, dtype=np.uint8)
+            for _ in range(OSD_OPS)]
+    objs_b = [np.frombuffer(sinfo_b.pad_to_stripe(o.tobytes()), dtype=np.uint8)
+              for o in objs]
+    want_a = [ec_util.encode(sinfo_a, codec_a, o) for o in objs]
+    want_b = [ec_util.encode(sinfo_b, codec_b, o) for o in objs_b]
+    launches = {}
+
+    async def main(mon_addr, mon_sock, sockdir):
+        report_s = cfg.accel_mgr_report_interval
+        mgrs = {n: MgrDaemon(n, mon_addr, config=Config(env=""))
+                for n in ("mgr.x", "mgr.y")}
+        acc_sock = os.path.join(sockdir, "accel.a.asok")
+        acc = AccelDaemon("accel.a", mon_addr=mon_addr, config=Config(dict(
+            FLEET_OVERRIDES, accel_locality="host0", admin_socket=acc_sock,
+            kernel_trace_max_duration=TRACE_MAX_S), env=""), device=None)
+        if acc.device != dev:
+            raise AssertionError(f"accel.a on {acc.device}, expected {dev}")
+        await acc.start("127.0.0.1", 0)
+        osds = [SimOsd(i, cfg, lambda o: AccelRouter(
+            o.messenger, mode="require", deadline=cfg.osd_ec_accel_deadline,
+            retry_interval=cfg.osd_ec_accel_retry_interval,
+            stale_interval=cfg.osd_ec_accel_stale_interval, perf=o.pacc,
+            perf_collection=o.perf))
+            for i in range(ACCEL_OSDS)]
+        for o in osds:
+            await o.subscribe(mon_addr)
+
+        async def until(what, pred, bound):
+            t0 = time.perf_counter()
+            while not pred():
+                if time.perf_counter() - t0 > bound:
+                    raise AssertionError(f"{what}: not within {bound} s")
+                await asyncio.sleep(0.005)
+            return time.perf_counter() - t0
+
+        await until("the routers learn accel.a",
+                    lambda: all(o.remote._map_clients for o in osds), 30)
+
+        def snapshot():
+            torch.cuda.synchronize()
+            return dict(gf_cuda.launches)
+
+        async def asok(path, prefix, **kw):
+            return await asyncio.wait_for(admin_command(path, prefix, **kw), 60)
+
+        def owner(i):
+            return osds[i % ACCEL_OSDS]
+
+        gf_cuda.reset_launches()
+        start = snapshot()
+
+        # 1. a trace window around pools A and B
+        opened = await asok(acc_sock, "kernel trace start", duration=TRACE_ASK_S,
+                            label="phase 11")
+        if not opened.get("success") or opened["duration_s"] != TRACE_MAX_S:
+            raise AssertionError(f"kernel trace start: {opened}")
+        refused = await asok(acc_sock, "kernel trace start", duration=1.0)
+        if not refused.get("busy") or "already open" not in refused.get("error", ""):
+            raise AssertionError(f"a second window was not refused: {refused}")
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*(owner(i).dispatch.encode(sinfo_a, codec_a, o)
+                                     for i, o in enumerate(objs)))
+        for i, g in enumerate(got):
+            _check_shards(f"traced pool A op {i}", g, want_a[i])
+        t_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*(owner(i).dispatch.encode(sinfo_b, codec_b, o)
+                                     for i, o in enumerate(objs_b)))
+        for i, g in enumerate(got):
+            _check_shards(f"traced pool B op {i}", g, want_b[i])
+        t_b = time.perf_counter() - t0
+        del got
+        stopped = await asok(acc_sock, "kernel trace stop")
+        dumped = await asok(acc_sock, "kernel trace dump")
+        if dumped != stopped:
+            raise AssertionError(f"kernel trace dump {dumped} differs from stop {stopped}")
+        share = check_trace_window(dumped)
+        launches["window"] = {n: c - start[n] for n, c in snapshot().items()}
+        for name in gf_cuda.EC_KERNELS:
+            if launches["window"][name] == 0:
+                raise AssertionError(f"{name} was not launched in the trace window")
+        profile = await asok(acc_sock, "dump_kernel_profile")
+        for engine, e in dumped["engines"].items():
+            merged = profile["engines"].get(engine, {}).get("device_trace")
+            if not merged or abs(sum(merged.values()) - e["seconds"]) > 1e-5 * max(
+                    1, len(merged)):
+                raise AssertionError(f"dump_kernel_profile's {engine}: device_trace "
+                                     f"{merged}, the window {e}")
+
+        # 2. the window's split
+        nbytes = OSD_OPS * OSD_OBJECT_SIZE
+        busy = busy_seconds(tracer().last_device_spans)
+        wall = dumped["wall_s"]
+        log(f"  kernel trace window on accel.a ({acc.device}): pool A encode "
+            f"{nbytes / t_a / 1e9:.3f} GB/s, pool B encode {nbytes / t_b / 1e9:.3f} GB/s "
+            f"(host clock, traced), every byte checked; wall {wall} s, "
+            f"{dumped['launch_intervals']} tap intervals, {dumped['op_events']} device events")
+        log(f"  buckets (device seconds): {dumped['buckets']}; device_seconds "
+            f"{dumped['device_seconds']}; occupancy {dumped.get('occupancy')}; "
+            f"{share:.4f} of the device seconds attributed to engines, unattributed "
+            f"{dumped['unattributed']}")
+        for rank, op in enumerate(dumped["top_ops"], 1):
+            if rank <= 5 or any(k in op["name"] for k in TRACE_KERNELS):
+                log(f"  top op {rank}: {op['name'][:90]} [{op['bucket']}] x{op['count']} "
+                    f"{op['seconds']:.6f} s")
+        for engine, e in dumped["engines"].items():
+            log(f"  engine {engine}: fused_op {e['fused_op']} s, dma {e['dma']} s, "
+                f"{e['events']} events")
+        log(f"  the card busy {busy:.6f} s of the window's {wall} s: idle share "
+            f"{1 - busy / wall:.4f} (union of the captured CUDA intervals)")
+
+        # 3. the admin sockets
+        for prefix, read in (("dump_launch_history", acc.dispatch.flight.dump),
+                             ("status", lambda: {
+                                 "name": acc.name, "addr": acc.addr,
+                                 "clients": acc.client_table(),
+                                 "queue_depth": acc.queue_depth(),
+                                 "engine_state": acc.supervisor.state}),
+                             ("perf dump", acc.perf.dump)):
+            before = read()
+            got = await asok(acc_sock, prefix)
+            check_between(f"accel.a {prefix}", got, before, read())
+        mon_perf = await asok(mon_sock, "perf dump")
+        mon_conf = await asok(mon_sock, "config show")
+        if "mon" not in mon_perf or mon_conf.get("admin_socket") != mon_sock.replace(
+                "mon.0", "{name}"):
+            raise AssertionError(f"the mon's socket: perf {sorted(mon_perf)}, "
+                                 f"admin_socket {mon_conf.get('admin_socket')!r}")
+        log(f"  admin sockets: accel.a's dump_launch_history, status and perf dump equal "
+            f"the daemon's own; mon.0 (its own process) answers perf dump "
+            f"({mon_perf['mon']['map_epoch']=}) and config show; a second window refused")
+
+        # 4. the mgr
+        await mgrs["mgr.x"].start()
+        t_x = await until("mgr.x active", lambda: mgrs["mgr.x"].active, 30)
+        await mgrs["mgr.y"].start()
+        await until("accel.a's map names mgr.x",
+                    lambda: acc.osdmap is not None and acc.osdmap.mgr_name == "mgr.x", 30)
+        t_r = await until("accel.a's report at mgr.x",
+                          lambda: "accel.a" in mgrs["mgr.x"].daemon_stats,
+                          REPORT_INTERVALS * report_s)
+        code, _, text = mgrs["mgr.x"].handle_command({"prefix": "metrics"})
+        ec = mgrs["mgr.x"].daemon_stats["accel.a"]["perf"]["ec"]
+        n_ec = 0
+        for key, val in ec.items():
+            if isinstance(val, (int, float)) and not isinstance(val, bool):
+                lines = [ln for ln in text.splitlines()
+                         if ln.startswith(f'ceph_ec_{key}{{daemon="accel.a"}} ')]
+                if len(lines) != 1 or float(lines[0].split()[-1]) != float(val):
+                    raise AssertionError(f"prometheus ceph_ec_{key} for accel.a: {lines}, "
+                                         f"reported {val}")
+                n_ec += 1
+        if code != 0 or n_ec == 0:
+            raise AssertionError(f"prometheus: code {code}, {n_ec} ec counters")
+        t0 = time.perf_counter()
+        await osds[0].command({"prefix": "mgr fail", "name": "mgr.x"})
+        await until("mgr.y active", lambda: mgrs["mgr.y"].active, 30)
+        t_f = time.perf_counter() - t0
+        t_y = await until("accel.a's report at mgr.y",
+                          lambda: "accel.a" in mgrs["mgr.y"].daemon_stats,
+                          REPORT_INTERVALS * report_s + 5)
+        log(f"  mgr: mgr.x active {t_x * 1e3:.1f} ms after it started; accel.a's "
+            f"MDaemonStats reached it {t_r * 1e3:.1f} ms after its map named mgr.x "
+            f"(report interval {report_s} s); prometheus carries its {n_ec} ec counters "
+            f"once each; mgr fail mgr.x: mgr.y active {t_f * 1e3:.1f} ms after the command "
+            f"was sent, accel.a's report there {t_y * 1e3:.1f} ms later")
+        launches["phase"] = {n: c - start[n] for n, c in snapshot().items()}
+        for o in osds:
+            await o.stop()
+        for m in mgrs.values():
+            await m.stop()
+        await acc.stop()
+        if os.path.exists(acc_sock):
+            raise AssertionError("accel.a's admin socket outlived the daemon")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as store:
+        sockdir = os.path.join(store, "run")
+        os.makedirs(sockdir)
+        proc, mon_addr, err = start_mon_process(
+            root, store, f"--admin_socket {sockdir}/{{name}}.asok")
+        try:
+            asyncio.run(asyncio.wait_for(
+                main(mon_addr, os.path.join(sockdir, "mon.0.asok"), sockdir),
+                OBS_PHASE_LIMIT_S))
+            if proc.poll() is not None:
+                raise AssertionError(f"the mon process exited with {proc.returncode}")
+        finally:
+            stop_process(proc)
+            err.close()
+    return launches["phase"]
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "ceph_tpu_torch" / "__init__.py").exists():
@@ -2293,11 +2613,15 @@ def main() -> int:
 
     log("== 10. accelerator fleet behind the mon")
     fleet_launches = run_accel_fleet(dev, rng, service_figures)
+
+    log("== 11. the operator surface: admin sockets, a kernel trace window, the mgr")
+    obs_launches = run_observability(dev, rng)
     for row in rows:
         row["launches_osd_engine"] = osd_launches[row["name"]]
         row["launches_churn"] = churn_launches[row["name"]]
         row["launches_accel_service"] = accel_launches[row["name"]]
         row["launches_accel_fleet"] = fleet_launches[row["name"]]
+        row["launches_observability"] = obs_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -13,10 +13,11 @@
   fault instead of falling back to the scalar walk.
 - The accelerator daemon owns the card: ``AccelDaemon()`` and the
   ``accel`` role of ``tools.daemon`` raise without CUDA unless given the
-  CPU, with a mon (``mon_addr``, ``--monmap``) too, and the options of
-  the daemon that are not ported yet (``admin_socket``, ``osd_ec_mesh``)
-  raise ``NotImplementedError`` instead of being ignored, with or
-  without a mon; so does the ``osd`` role of ``tools.daemon``.
+  CPU, with a mon (``mon_addr``, ``--monmap``) or an admin socket too,
+  and the option of the daemon that is not ported yet (``osd_ec_mesh``)
+  raises ``NotImplementedError`` instead of being ignored, with or
+  without a mon or a socket; so does the ``osd`` role of
+  ``tools.daemon``.
 """
 
 import pathlib
@@ -101,6 +102,11 @@ _SLICE_MODULES = {
     # the Monitor and the accelerator fleet
     "ceph_tpu_torch.mon.monitor", "ceph_tpu_torch.accel.router",
     "ceph_tpu_torch.tools.monmaptool",
+    # the admin socket, kernel trace windows and the mgr
+    "ceph_tpu_torch.common.admin_socket", "ceph_tpu_torch.common.op_tracker",
+    "ceph_tpu_torch.mgr", "ceph_tpu_torch.mgr.daemon",
+    "ceph_tpu_torch.mgr.modules", "ceph_tpu_torch.mgr.tsdb",
+    "ceph_tpu_torch.mgr.trace_store",
 }
 
 
@@ -301,10 +307,10 @@ def test_accel_role_serves_on_the_cpu_when_asked():
 
 
 @pytest.mark.parametrize("what", ["mon_addr", "admin_socket", "osd_ec_mesh"])
-def test_accel_daemon_refuses_what_is_not_ported(what):
-    """``admin_socket`` and ``osd_ec_mesh`` are refused.  ``mon_addr`` is
-    ported: the daemon takes it, and with it still refuses the options
-    that are not ported."""
+def test_accel_daemon_refuses_what_is_not_ported(what, tmp_path):
+    """``osd_ec_mesh`` is refused.  ``mon_addr`` and ``admin_socket`` are
+    ported: the daemon takes each, and with it still refuses the option
+    that is not ported."""
     from ceph_tpu_torch.accel import AccelDaemon
     from ceph_tpu_torch.common import Config
 
@@ -313,9 +319,14 @@ def test_accel_daemon_refuses_what_is_not_ported(what):
         assert acc.mon_addr == "127.0.0.1:1" and acc.device.type == "cpu"
         kw = {"mon_addr": ["127.0.0.1:1"],
               "config": Config({"osd_ec_mesh": True}, env="")}
+    elif what == "admin_socket":
+        path = str(tmp_path / "x.asok")
+        acc = AccelDaemon("accel.9", device="cpu",
+                          config=Config({what: path}, env=""))
+        assert acc.config.admin_socket == path and acc.device.type == "cpu"
+        kw = {"config": Config({what: path, "osd_ec_mesh": True}, env="")}
     else:
-        kw = {"config": Config({what: "/tmp/x.asok" if what == "admin_socket"
-                                else True}, env="")}
+        kw = {"config": Config({what: True}, env="")}
     with pytest.raises(NotImplementedError, match="not supported"):
         AccelDaemon("accel.9", device="cpu", **kw)
 

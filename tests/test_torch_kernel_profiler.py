@@ -247,3 +247,89 @@ def test_codec_taps_use_the_reference_engine_names(gate, monkeypatch):
         assert engines[name]["calls"] >= 1, (name, sorted(engines))
     assert engines["gf_encode"]["bytes"] >= data.size
     assert engines["bitmatrix_encode"]["shapes"] == {"(16, 32)": 1}  # packet rows
+
+
+# -- the trace-window tap and the device buckets ------------------------------------
+
+
+def test_merge_device_time():
+    """A closed trace window's per-engine buckets fold into the
+    matching entries (ops.device_trace merge) and reset clears them
+    with everything else (twin of the reference's test)."""
+    p = KernelProfiler()
+    p.record("e", "k", 0.1, compiled=False)
+    p.merge_device_time({"e": {"collective": 0.04, "fused_op": 0.01}})
+    p.merge_device_time({"e": {"collective": 0.02}})
+    d = p.dump()["engines"]["e"]["device_trace"]
+    assert d == {"collective": 0.06, "fused_op": 0.01}
+    p.reset()
+    assert p.dump()["engines"] == {}
+
+
+def test_merged_dump_matches_the_reference_profiler():
+    """The same records and window merges give the same dump, the
+    ``device_trace`` buckets included, apart from timestamps (an engine
+    a window saw but no call recorded too)."""
+    port, ref = KernelProfiler(), RefKernelProfiler()
+    for p in (port, ref):
+        p.record("ec_shards", ("m", (4, 8, 16)), 0.5, nbytes=1 << 20,
+                 shape=(4, 8, 16), compiled=False)
+        p.merge_device_time({"ec_shards": {"fused_op": 0.001, "dma": 0.2,
+                                           "collective": 0.0},
+                             "bitmatrix_encode": {"dma": 0.09}})
+    a, b = port.dump(), ref.dump()
+    a.pop("since"), b.pop("since")
+    assert a == b
+    assert a["engines"]["ec_shards"]["device_trace"]["dma"] == 0.2
+
+
+class _Sink:
+    """Stands in for an open DeviceTracer window."""
+
+    active = True
+
+    def __init__(self):
+        self.notes = []
+
+    def note_kernel(self, engine, key, seconds, nbytes=0, t_end_pc=None):
+        self.notes.append((engine, key, seconds, nbytes, t_end_pc))
+
+
+def test_a_window_gets_each_host_call_once():
+    p = KernelProfiler()
+    sink = p.trace_sink = _Sink()
+    import time
+
+    t0 = time.perf_counter()
+    p.call_jitted("e", "sig", lambda x: x, (1,), nbytes=8)
+    with p.timed("t", "k", nbytes=4):
+        pass
+    t1 = time.perf_counter()
+    assert [(n[0], n[1], n[3]) for n in sink.notes] == [("e", "sig", 8), ("t", "k", 4)]
+    for _e, _k, seconds, _n, t_end in sink.notes:
+        assert t0 <= t_end - seconds <= t_end <= t1
+    sink.active = False
+    p.record("e", "sig", 0.1)
+    assert len(sink.notes) == 2  # a closed window gets nothing
+
+
+def test_a_window_gets_a_cuda_calls_host_interval_at_call_time(monkeypatch):
+    """A CUDA call is read later, when the card has passed it, but the
+    window gets its host interval at call time, once: the kernels it
+    issued were launched inside that interval."""
+    from ceph_tpu_torch.ops import profiler as prof
+    import time
+
+    monkeypatch.setattr(prof, "_new_events", lambda: (_FakeEvent(), _FakeEvent()))
+    monkeypatch.setattr(prof, "_stream", lambda device: f"stream of {device}")
+    p = KernelProfiler()
+    sink = p.trace_sink = _Sink()
+    t0 = time.perf_counter()
+    p.call_jitted("e", "sig", lambda x: 7, (_OnCard(),), nbytes=8)
+    t1 = time.perf_counter()
+    assert len(p._pending) == 1 and len(sink.notes) == 1
+    _e, _k, seconds, nbytes, t_end = sink.notes[0]
+    assert nbytes == 8 and t0 <= t_end - seconds <= t_end <= t1
+    d = p.dump()["engines"]["e"]  # reads the card's time: no second note
+    assert d["calls"] == 1 and d["first_exec_s"] == 0.25
+    assert len(sink.notes) == 1

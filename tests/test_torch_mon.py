@@ -582,10 +582,11 @@ def test_pool_set_get_and_reweight():
     run(main())
 
 
-def test_mon_has_no_card_and_refuses_the_admin_socket():
+def test_mon_has_no_card_and_refuses_the_admin_socket(tmp_path):
     """The mon validates an EC profile with a codec built on the host
-    (it never encodes), and refuses the admin socket until it is
-    ported."""
+    (it never encodes).  Its admin socket is ported: the mon takes the
+    option, serves the socket and removes it on stop (the socket's
+    bodies are held in tests/test_torch_admin_socket.py)."""
     from ceph_tpu_torch.models import registry
 
     built = []
@@ -608,8 +609,16 @@ def test_mon_has_no_card_and_refuses_the_admin_socket():
         await mon.stop()
 
     run(main())
-    with pytest.raises(NotImplementedError, match="not supported"):
-        Monitor(config=Config({"admin_socket": "/tmp/m.asok"}, env=""))
+    path = tmp_path / "m.asok"
+
+    async def serve():
+        mon = Monitor(config=Config({"admin_socket": str(path)}, env=""))
+        await mon.start()
+        assert path.exists()
+        await mon.stop()
+        assert not path.exists()
+
+    run(serve())
 
 
 # -- twins of tests/test_multimon.py --------------------------------------------
