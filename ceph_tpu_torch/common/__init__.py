@@ -1,8 +1,8 @@
 """Daemon-wide plumbing: the config table, perf counters, the admin
 socket, the op tracker, tracepoints and the trace context, the watchdog,
 and the messenger's runtime helpers (throttle, frame and receive pools,
-clock sync, the ``stack.*`` ledger, the memory log).  Counterpart of
-``ceph_tpu/common``; lockdep is not ported yet."""
+clock sync, the ``stack.*`` ledger, the memory log), and lockdep.
+Counterpart of ``ceph_tpu/common``."""
 
 from .config import OPTIONS, Config, Option
 from .perf_counters import (
@@ -15,6 +15,7 @@ from .perf_counters import (
 )
 from .admin_socket import AdminSocket, admin_command, register_common
 from .heartbeat_map import HeartbeatHandle, HeartbeatMap
+from .lockdep import LockdepLock, LockOrderViolation, lockdep_enable
 from .op_tracker import OpTracker, TrackedOp
 from .tracing import (
     TraceProvider,
@@ -40,6 +41,9 @@ __all__ = [
     "register_common",
     "HeartbeatHandle",
     "HeartbeatMap",
+    "LockdepLock",
+    "LockOrderViolation",
+    "lockdep_enable",
     "OpTracker",
     "TrackedOp",
     "TraceProvider",

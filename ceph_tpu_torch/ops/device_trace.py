@@ -49,6 +49,20 @@ emitted as the window opens.  An event with no launch event falls back
 to the reference's rule: the interval its own time overlaps most, or the
 nearest one within 2 ms.
 
+**Completeness.**  A card window's session starts with one profiler
+warm-up step (``WARM_UP_S`` of tiny probes on the card, not kept) and
+only then records, because the card's activity collection comes up
+some time after the session starts; and it waits for the card before
+it stops, so every launch of the window has finished when the activity
+buffers are flushed.  The dump's ``capture`` key (:func:`capture_check`)
+holds each hand kernel's captured ``kernel`` events against the
+launches its wrapper counted while the window was open
+(``gf_cuda.launch_counts`` when the session came up and again before it
+stops), lists the kernels whose capture is ``short``, and counts the
+tap intervals with no captured device event.  A launch counted at a
+window's edge, while another caller opens or closes it, may count on
+one side only.
+
 **Threads.**  Kineto's session state belongs to the thread that opened
 it, so a window is one session owned by one thread of its own: ``start``
 and ``stop`` (and the expiry timer) only signal that thread.  Its
@@ -74,6 +88,7 @@ window opens.
 
 from __future__ import annotations
 
+import bisect
 import glob
 import gzip
 import json
@@ -101,6 +116,9 @@ ANCHOR_NAME = "ceph_tpu_torch::ktrace_anchor"
 # how long start/stop wait for the session thread (the first CUDA
 # session initializes CUPTI)
 _SESSION_WAIT_S = 120.0
+# a card window's warm-up before it opens, and the gap between its probes
+WARM_UP_S = 1.0
+WARM_UP_PROBE_S = 0.01
 
 
 def classify_trace_event(name: str, args: dict | None = None,
@@ -191,6 +209,17 @@ def busy_seconds(spans: Iterable[tuple[float, float]]) -> float:
     return total / 1e6
 
 
+def _launch_calls(events: list[dict]) -> dict[Any, tuple[float, float]]:
+    """Correlation id -> the host launch call's (ts, dur), in us."""
+    calls = {}
+    for ev in events:
+        if ev.get("cat") in _LAUNCH_CATS:
+            corr = (ev.get("args") or {}).get("correlation")
+            if corr is not None:
+                calls[corr] = (float(ev["ts"]), float(ev.get("dur", 0.0)))
+    return calls
+
+
 def summarize_events(
     events: Iterable[dict], threads: dict | None = None, *,
     intervals: Iterable[tuple] = (), anchor_offset: float | None = None,
@@ -212,14 +241,7 @@ def summarize_events(
     unattributed = {b: 0.0 for b in BUCKETS}
     ops: dict[tuple, list] = {}
     n_op_events = 0
-    # correlation id -> the host launch event's (ts, dur), in us
-    launches: dict[Any, tuple[float, float]] = {}
-    for ev in events:
-        if ev.get("cat") in _LAUNCH_CATS:
-            corr = (ev.get("args") or {}).get("correlation")
-            if corr is not None:
-                launches[corr] = (float(ev["ts"]),
-                                  float(ev.get("dur", 0.0)))
+    launches = _launch_calls(events)
 
     def _attr(ev_t0: float, ev_t1: float):
         """Engine/key of the launch interval overlapping this span most
@@ -312,6 +334,62 @@ def summarize_events(
     return out
 
 
+def capture_check(events: Iterable[dict], launched: dict[str, int],
+                  threads: dict | None = None, *,
+                  intervals: Iterable[tuple] = (),
+                  anchor_offset: float | None = None) -> dict:
+    """Whether a capture holds every launch the window counted.
+
+    ``launched`` maps a hand kernel's name (``gf_cuda.launches``' keys)
+    to the launches its wrapper counted while the window was open; a
+    captured ``kernel`` event belongs to it when its name carries
+    ``<name>_kernel``.  ``short`` lists the kernels with fewer captured
+    events than counted launches.  ``intervals_without_device_events``
+    counts the tap intervals (``summarize_events``' ``intervals``) that
+    no captured device event's launch call, or where it has none its own
+    time, overlaps: a tapped call whose device work is missing from the
+    capture.  Without an anchor no interval can be placed, and every one
+    counts as without events."""
+    threads = threads or {}
+    events = list(events)
+    captured = {name: 0 for name in launched}
+    launch_at = _launch_calls(events)
+    spans = []
+    for ev in events:
+        if _event_bucket(ev, threads) is None:
+            continue
+        if ev.get("cat") == _KERNEL_CAT:
+            for name in captured:
+                if f"{name}_kernel" in ev.get("name", ""):
+                    captured[name] += 1
+        if anchor_offset is not None:
+            t, d = launch_at.get((ev.get("args") or {}).get("correlation"),
+                                 (float(ev["ts"]), float(ev.get("dur", 0.0))))
+            t0 = anchor_offset + t / 1e6
+            spans.append((t0, t0 + max(d, 1.0) / 1e6))
+    spans.sort()
+    starts = [a for a, _ in spans]
+    # the latest end among the spans that start before each point: an
+    # interval is covered when a span starting before its end ends
+    # after its start
+    reach, latest = [], float("-inf")
+    for _, b in spans:
+        latest = max(latest, b)
+        reach.append(latest)
+    empty = 0
+    for t0, t1, *_ in intervals:
+        hi = bisect.bisect_right(starts, t1)
+        if hi == 0 or reach[hi - 1] < t0:
+            empty += 1
+    kernels = {name: {"launched": int(launched[name]), "captured": captured[name]}
+               for name in sorted(launched)}
+    return {
+        "kernels": kernels,
+        "short": [n for n, k in kernels.items() if k["captured"] < k["launched"]],
+        "intervals_without_device_events": empty,
+    }
+
+
 def _wants_cuda(device) -> bool | None:
     """True for a CUDA device, False for the host, None to take the
     card when there is one."""
@@ -352,18 +430,27 @@ class _Session:
             raise self.error
 
     def _run(self) -> None:
+        on_card = self.cuda
         try:
+            import torch
             from torch.profiler import (
                 ProfilerActivity,
                 profile,
                 record_function,
+                schedule,
             )
 
             acts = [ProfilerActivity.CPU]
-            if self.cuda:
+            if on_card:
                 acts.append(ProfilerActivity.CUDA)
-            prof = profile(activities=acts)
+            # one warm-up step, then one recorded until stop: the card's
+            # activity is collected from start(), and kept only from step()
+            prof = profile(activities=acts,
+                           schedule=schedule(wait=0, warmup=1, active=1))
             prof.start()
+            if on_card:
+                _warm_up(torch)
+            prof.step()
             with record_function(ANCHOR_NAME):
                 self.anchor_pc = time.perf_counter()
         except Exception as e:  # swallow-ok: handed to open()'s caller, which replies unavailable
@@ -373,10 +460,35 @@ class _Session:
         self._opened.set()
         self._close.wait()
         try:
+            if on_card:
+                # every launch of the window has finished on the card
+                # before the activity buffers are flushed
+                torch.cuda.synchronize()
             prof.stop()
             prof.export_chrome_trace(self.path)
         except Exception as e:  # swallow-ok: handed to close()'s caller, which replies unavailable
             self.error = e
+
+
+def _warm_up(torch) -> None:
+    """Keep the card busy with tiny probes for ``WARM_UP_S`` while the
+    session's CUDA activity collection comes up.  Without it, a window
+    on an H100 sometimes lost its first launches: their runtime calls
+    were in the capture, their kernels and copies were not.  The
+    warm-up step's activity is not kept, so the window starts after
+    it."""
+    x = torch.zeros(1, device="cuda")
+    end = time.perf_counter() + WARM_UP_S
+    while time.perf_counter() < end:
+        x.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(WARM_UP_PROBE_S)
+
+
+def _launch_counts() -> dict[str, int]:
+    from . import gf_cuda
+
+    return gf_cuda.launch_counts()
 
 
 _prepared = False
@@ -417,6 +529,13 @@ class DeviceTracer:
         self._timer: threading.Timer | None = None
         self._intervals: list[tuple] = []
         self._intervals_dropped = 0
+        # the hand kernels' launch counts when the open window's session
+        # came up (gf_cuda.launch_counts), for the capture check
+        self._launches_at_open: dict[str, int] = {}
+        # clear while a close is between marking the window inactive and
+        # storing its result
+        self._not_closing = threading.Event()
+        self._not_closing.set()
         self.last: dict | None = None
         # the last closed window's device spans ((start_us, end_us) on
         # its trace timeline), for an idle share over its wall time
@@ -517,6 +636,7 @@ class DeviceTracer:
             self._dir = log_dir
             self._session = session
             self._timer = timer
+            self._launches_at_open = _launch_counts()
             # restart the expiry clock now the session is actually
             # open: the first CUDA session pays CUPTI's init, and a
             # short window must not expire during its own open
@@ -585,73 +705,84 @@ class DeviceTracer:
             wall_s = time.time() - self._opened_at
             intervals = self._intervals
             dropped = self._intervals_dropped
+            at_open = self._launches_at_open
             self._active = False
+            self._not_closing.clear()
             self._dir = None
             self._session = None
             self._intervals = []
             timer, self._timer = self._timer, None
-        if timer is not None:
-            timer.cancel()  # no-op when this IS the timer thread
         try:
-            session.close()
-            events, threads = parse_trace_dir(log_dir)
-            anchor_ts = min(
-                (float(e["ts"]) for e in events
-                 if e.get("name") == ANCHOR_NAME),
-                default=None,
-            )
-            offset = (session.anchor_pc - anchor_ts / 1e6
-                      if anchor_ts is not None else None)
-            summary = summarize_events(
-                events, threads, intervals=intervals,
-                anchor_offset=offset, wall_s=wall_s,
-            )
-            spans = device_spans(events, threads)
-            failure = None
-            if session.cuda and not spans:
-                failure = ("the CUDA trace window captured no CUDA "
-                           "kernel, copy or memset")
-        except Exception as e:  # swallow-ok: capture/parse failure is an observability miss, not an op error — the window closes and reports a structured unavailable
-            failure = f"trace capture failed: {e!r}"
-            summary = None
-        finally:
-            if log_dir:
-                shutil.rmtree(log_dir, ignore_errors=True)
-        if failure is not None:
+            if timer is not None:
+                timer.cancel()  # no-op when this IS the timer thread
+            try:
+                launched = {n: c - at_open.get(n, 0)
+                            for n, c in _launch_counts().items()}
+                session.close()
+                events, threads = parse_trace_dir(log_dir)
+                anchor_ts = min(
+                    (float(e["ts"]) for e in events
+                     if e.get("name") == ANCHOR_NAME),
+                    default=None,
+                )
+                offset = (session.anchor_pc - anchor_ts / 1e6
+                          if anchor_ts is not None else None)
+                summary = summarize_events(
+                    events, threads, intervals=intervals,
+                    anchor_offset=offset, wall_s=wall_s,
+                )
+                spans = device_spans(events, threads)
+                capture = capture_check(events, launched, threads,
+                                        intervals=intervals, anchor_offset=offset)
+                failure = None
+                if session.cuda and not spans:
+                    failure = ("the CUDA trace window captured no CUDA "
+                               "kernel, copy or memset")
+            except Exception as e:  # swallow-ok: capture/parse failure is an observability miss, not an op error — the window closes and reports a structured unavailable
+                failure = f"trace capture failed: {e!r}"
+                summary = None
+            finally:
+                if log_dir:
+                    shutil.rmtree(log_dir, ignore_errors=True)
+            if failure is not None:
+                with self._lock:
+                    self._failed_windows += 1
+                    self.last = {
+                        ("error" if summary is not None else "unavailable"):
+                            failure,
+                        "label": label, "wall_s": round(wall_s, 3),
+                    }
+                    self.last_device_spans = []
+                    return dict(self.last)
+            result = {
+                "label": label,
+                "wall_s": round(wall_s, 3),
+                **({"expired": True} if expired else {}),
+                **({"intervals_dropped": dropped} if dropped else {}),
+                "launch_intervals": len(intervals),
+                **summary,
+                "capture": capture,
+            }
             with self._lock:
-                self._failed_windows += 1
-                self.last = {
-                    ("error" if summary is not None else "unavailable"):
-                        failure,
-                    "label": label, "wall_s": round(wall_s, 3),
-                }
-                self.last_device_spans = []
-                return dict(self.last)
-        result = {
-            "label": label,
-            "wall_s": round(wall_s, 3),
-            **({"expired": True} if expired else {}),
-            **({"intervals_dropped": dropped} if dropped else {}),
-            "launch_intervals": len(intervals),
-            **summary,
-        }
-        with self._lock:
-            self._windows += 1
-            for b in BUCKETS:
-                self._totals[b] += summary["buckets"][b]
-            self._last_occupancy = summary.get("occupancy", 0.0)
-            self.last = result
-            self.last_device_spans = spans
-        # fold the per-engine buckets into the KernelProfiler entries
-        # (same engine names as the call stats): dump_kernel_profile
-        # then says where each engine's device time went
-        from .profiler import profiler
+                self._windows += 1
+                for b in BUCKETS:
+                    self._totals[b] += summary["buckets"][b]
+                self._last_occupancy = summary.get("occupancy", 0.0)
+                self.last = result
+                self.last_device_spans = spans
+            # fold the per-engine buckets into the KernelProfiler entries
+            # (same engine names as the call stats): dump_kernel_profile
+            # then says where each engine's device time went
+            from .profiler import profiler
 
-        profiler().merge_device_time({
-            name: {b: e[b] for b in BUCKETS}
-            for name, e in summary["engines"].items()
-        })
-        return dict(result)
+            profiler().merge_device_time({
+                name: {b: e[b] for b in BUCKETS}
+                for name, e in summary["engines"].items()
+            })
+            return dict(result)
+        finally:
+            # a dump() that raced this close waits for it here
+            self._not_closing.set()
 
     # -- admin/service views -------------------------------------------------
 
@@ -680,11 +811,13 @@ class DeviceTracer:
         """The last closed window's breakdown (closing an expired one
         first, so `trace start` + launch + `trace dump` round-trips
         without an explicit stop once the duration passed).  Runs the
-        close itself when it races the expiry timer — callers arrive
-        via executors (admin handler) or sync tools, never bare on a
-        daemon event loop."""
+        close itself when it races the expiry timer, and waits for a
+        close already under way on another thread — callers arrive via
+        executors (admin handler) or sync tools, never bare on a daemon
+        event loop."""
         if self._expired():
             self._close(expired=True)
+        self._not_closing.wait(_SESSION_WAIT_S)
         with self._lock:
             if self._active:
                 return {

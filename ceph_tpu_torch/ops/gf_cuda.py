@@ -124,6 +124,12 @@ def reset_launches() -> None:
             launches[name] = 0
 
 
+def launch_counts() -> dict[str, int]:
+    """A consistent copy of :data:`launches`."""
+    with _LAUNCHES_LOCK:
+        return dict(launches)
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

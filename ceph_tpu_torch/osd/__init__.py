@@ -1,4 +1,8 @@
 """The OSD's erasure-code engine: stripe math (``ec_util``), write
 planning (``ec_transaction``), the cross-op microbatch dispatcher
 (``ec_dispatch``) and its engine supervisor (``ec_failover``); the
-cluster map (``osdmap``) and device-planned churn (``churn``)."""
+cluster map (``osdmap``) and device-planned churn (``churn``); and the
+PG-level helpers the OSD stands on: the PG log (``pg_log``), snapshots
+(``snaps``), peering's info and past intervals (``peering``),
+recovery reservations (``reservations``) and the per-client op ledger
+(``client_ledger``)."""

@@ -146,8 +146,11 @@ Phases, each fatal on any mismatch or exception:
    refused), phase 6's pools A and B encoded through it (every byte
    checked), ``kernel trace stop`` and ``dump``.  The dump must show
    kernel and copy seconds, ``gf_matmul_kernel`` and
-   ``bitmatrix_xor_kernel`` among its top ops and more than half of its
-   device seconds attributed to engines, and ``dump_kernel_profile``
+   ``bitmatrix_xor_kernel`` among its top ops, more than half of its
+   device seconds attributed to engines and a whole capture (its
+   ``capture`` key: as many captured events of each EC kernel as
+   launches counted in the window, and no tap interval without a
+   captured device event; a short capture fails), and ``dump_kernel_profile``
    the same engines' merged ``device_trace`` buckets; it prints the
    buckets, the top ops, the occupancy and the card's idle share (the
    union of the captured CUDA intervals over the window's wall).  Then
@@ -159,13 +162,39 @@ Phases, each fatal on any mismatch or exception:
    ``ec`` counters once each in the prometheus ``metrics``, and after
    ``mgr fail mgr.x`` ``mgr.y`` active with the reports following it.
    The phase runs under ``asyncio.wait_for`` and stops the mon process.
+12. the card's EC writes in the stores beneath the OSD, with the launch
+   counts set to 0 just before it: pool A's 64 objects of 4 MiB encoded
+   through an ``ECDispatcher`` on the card with the OSD's defaults (as in
+   phase 6), each shard's transaction built as the reference OSD's EC
+   write builds it (the ``{pg}s{shard}`` collection, the rollback
+   stash, the truncate, the chunk, the crc table, the object info and
+   the PG log entry in one transaction) and committed with
+   ``queue_transaction`` into 11 port ``BlueStore``s (``sync="fsync"``,
+   no compression), one per shard; every store unmounted and mounted,
+   ``fsck()`` clean, each shard's PG log the 64 entries in version
+   order; then a degraded read of every object with shard 1 rotten
+   under object 0 (a flipped byte of its block file, which must raise
+   ``BitrotError``), shard 5's store down and shard 9 holding a wrong
+   chunk of object 0 under its old crc table (which must fail
+   ``StripeHashes.verify``): the survivors come from
+   ``codec.minimum_to_decode``, are read from the stores and decoded by
+   ``decode_concat`` on the card, and every object's bytes must equal
+   what was written; last, shard 2 on a port ``WalStore``
+   (``sync="fsync"``) whose ``crash_after`` fires at the 10th of 16 more
+   writes: remounted, the 10 journaled writes read back whole, the 6
+   later ones are absent, and every acknowledged object decodes with
+   shards 0 and 1 lost, through the WalStore where it holds the object.
+   No op may leave the card and ``gf_matmul`` must launch.  It prints the
+   write's and the read's GB/s (host clock) and how each splits between
+   the stores and the dispatcher.  The phase runs under
+   ``asyncio.wait_for``.
 
 Output: the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on its main path, phase 4 or 7, with ``launches_osd_engine``
 from phase 6, ``launches_churn`` from phase 8,
 ``launches_accel_service`` from phase 9, ``launches_accel_fleet``
-from phase 10 and ``launches_observability`` from phase 11 beside it),
-and last
+from phase 10, ``launches_observability`` from phase 11 and
+``launches_osd_stores`` from phase 12 beside it), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -2298,13 +2327,28 @@ def check_between(what: str, got, before, after) -> None:
                                  f"{lo!r} and {hi!r} in process")
 
 
-def check_trace_window(result: dict) -> float:
+def check_trace_window(result: dict, launched: dict) -> float:
     """The window's dump must show the card's work: kernel and copy
     seconds, both EC kernels among its top ops, and more than half of
     its device seconds attributed to the engines that launched them.
-    Returns the attributed share."""
+    The capture must be whole: for each EC kernel, as many captured
+    kernel events as launches counted in the window (``launched``, the
+    wrappers' counts), the same counts in the dump's ``capture``, and
+    no tap interval without a captured device event.  Returns the
+    attributed share."""
+    from ceph_tpu_torch.ops import gf_cuda
+
     if "error" in result or "unavailable" in result:
         raise AssertionError(f"the trace window failed: {result}")
+    capture = result["capture"]
+    for name in gf_cuda.EC_KERNELS:
+        got = capture["kernels"][name]
+        if got != {"launched": launched[name], "captured": launched[name]}:
+            raise AssertionError(f"the trace window's capture is short: {name} launched "
+                                 f"{launched[name]} times in the window, the dump "
+                                 f"{got}")
+    if capture["short"] or capture["intervals_without_device_events"]:
+        raise AssertionError(f"the trace window's capture is short: {capture}")
     b = result["buckets"]
     if not b["fused_op"] > 0 or not b["dma"] > 0:
         raise AssertionError(f"trace buckets {b}: no kernel or no copy time")
@@ -2426,11 +2470,13 @@ def run_observability(dev, rng) -> dict:
         dumped = await asok(acc_sock, "kernel trace dump")
         if dumped != stopped:
             raise AssertionError(f"kernel trace dump {dumped} differs from stop {stopped}")
-        share = check_trace_window(dumped)
         launches["window"] = {n: c - start[n] for n, c in snapshot().items()}
         for name in gf_cuda.EC_KERNELS:
             if launches["window"][name] == 0:
                 raise AssertionError(f"{name} was not launched in the trace window")
+        log(f"  the capture: {dumped['capture']}; launches counted in the window "
+            f"{launches['window']}")
+        share = check_trace_window(dumped, launches["window"])
         profile = await asok(acc_sock, "dump_kernel_profile")
         for engine, e in dumped["engines"].items():
             merged = profile["engines"].get(engine, {}).get("device_trace")
@@ -2542,6 +2588,354 @@ def run_observability(dev, rng) -> dict:
     return launches["phase"]
 
 
+# -- phase 12: the card's EC writes in the shard stores ----------------------------
+
+
+# one PG of pool A, its 11 shards on 11 OSDs' stores (one BlueStore each)
+STORE_PG = "1.0"
+STORE_EPOCH = 7
+STORE_OBJECTS = 64
+# the three shards lost to the degraded read, one way each
+STORE_BITROT_SHARD = 1
+STORE_DOWN_SHARD = 5
+STORE_BAD_CRC_SHARD = 9
+# the crash step: this shard's store is a WalStore that journals
+# STORE_CRASH_AFTER of the STORE_CRASH_OBJECTS writes and then crashes;
+# its read loses STORE_WAL_LOST, so minimum_to_decode reads the WalStore
+STORE_WAL_SHARD = 2
+STORE_CRASH_OBJECTS = 16
+STORE_CRASH_AFTER = 10
+STORE_WAL_LOST = (0, 1)
+# the object info xattr (ceph_tpu/osd/recovery.py:69 OI_KEY)
+OI_KEY = "_"
+STORE_PHASE_LIMIT_S = 600.0
+
+
+def store_oid(i: int) -> str:
+    return f"rbd_data.12ab.{i:016x}"
+
+
+def ec_write_txns(sinfo, oid: str, shard_bufs: dict, size: int, version, prior) -> dict:
+    """The per-shard transactions of the OSD's EC write of a whole object:
+    ``_ec_commit``'s ``build_txn`` (ceph_tpu/osd/daemon.py:2563-2630: the
+    shard collection ``{pg}s{shard}``, the rollback stash, the truncate of a
+    full write, the chunk, the crc table and the object info), with the PG
+    log entry appended in the same transaction as ``_apply_sub_write`` does
+    (:3149-3170)."""
+    from ceph_tpu_torch.osd import ec_transaction
+    from ceph_tpu_torch.osd.ec_util import StripeHashes
+    from ceph_tpu_torch.osd.pg_log import PGLogEntry, add_log_entry_to_txn, stash_name
+    from ceph_tpu_torch.store import CollectionId, ObjectId, Transaction
+
+    plan = ec_transaction.plan_write_full(sinfo, 0, size)
+    hashes = StripeHashes(len(shard_bufs), sinfo.chunk_size)
+    hashes.set_range(0, shard_bufs)
+    hinfo_b = json.dumps(hashes.to_dict()).encode()
+    oi_b = json.dumps({"size": plan.new_size, "version": version.to_list()}).encode()
+    sname = stash_name(oid, version)
+    entry = PGLogEntry("modify", oid, version, prior, stash=sname)
+    txns = {}
+    for shard, buf in shard_bufs.items():
+        cid = CollectionId(f"{STORE_PG}s{shard}")
+        soid = ObjectId(oid, shard)
+        txn = (Transaction().create_collection(cid)
+               .try_stash(cid, soid, ObjectId(sname, shard))
+               .truncate(cid, soid, plan.shard_truncate)
+               .write(cid, soid, 0, np.asarray(buf).tobytes())
+               .setattr(cid, soid, StripeHashes.XATTR_KEY, hinfo_b)
+               .setattr(cid, soid, OI_KEY, oi_b))
+        add_log_entry_to_txn(txn, cid, shard, entry)
+        txns[shard] = txn
+    return txns
+
+
+def read_shards_degraded(sinfo, codec, stores: dict, oid: str, lost=()) -> tuple[dict, set]:
+    """The OSD's degraded read of a whole object (``_ec_read``,
+    ceph_tpu/osd/daemon.py:3280-3310): survivors from
+    ``codec.minimum_to_decode`` over the shards not lost, each read from its
+    store and its chunks held against the stored crc table; a shard whose
+    read raises (``BitrotError``, a missing object) or whose crc fails joins
+    the failed set and the survivors are chosen again.  Returns the chunks
+    read and the shards that failed."""
+    from ceph_tpu_torch.osd.ec_util import StripeHashes
+    from ceph_tpu_torch.store import CollectionId, ObjectId
+
+    want = list(range(codec.get_data_chunk_count()))
+    usable = {s for s in stores if s not in lost}
+    failed: set = set()
+    while True:
+        to_read = codec.minimum_to_decode(want, sorted(usable - failed))
+        chunks = {}
+        for s in to_read:
+            cid, soid = CollectionId(f"{STORE_PG}s{s}"), ObjectId(oid, s)
+            try:
+                arr = np.frombuffer(stores[s].read(cid, soid), dtype=np.uint8)
+                hashes = StripeHashes.from_dict(
+                    json.loads(stores[s].getattr(cid, soid, StripeHashes.XATTR_KEY)))
+            except (OSError, KeyError):
+                failed.add(s)
+                continue
+            if arr.size % sinfo.chunk_size or not hashes.verify(s, 0, arr):
+                failed.add(s)
+                continue
+            chunks[s] = arr
+        if len(chunks) == len(to_read):
+            return chunks, failed
+
+
+def run_osd_stores(dev, rng, root: str | None = None) -> dict:
+    """Phase 12 (see the module docstring).  ``root`` holds the stores
+    (a temporary directory when None).  Returns the kernels' launch
+    counts over the phase, counted from one reset."""
+    import asyncio
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.common.perf_counters import PerfCountersCollection
+    from ceph_tpu_torch.models import registry
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.ec_dispatch import ECDispatcher
+    from ceph_tpu_torch.osd.ec_failover import HEALTHY, STATE_NAMES, EngineSupervisor
+    from ceph_tpu_torch.osd.ec_perf import create_ec_perf
+    from ceph_tpu_torch.osd.pg_log import Eversion, read_log
+    from ceph_tpu_torch.store import (
+        BitrotError,
+        BlueStore,
+        CollectionId,
+        CrashPoint,
+        ObjectId,
+        Transaction,
+        WalStore,
+    )
+    from ceph_tpu_torch.store.blue import _okey
+
+    plugin, profile, chunk = POOL_A
+    codec = registry.instance().factory(plugin, dict(profile), device=dev)
+    if codec.device != dev:
+        raise AssertionError(f"{plugin} codec on {codec.device}, expected {dev}")
+    k, n = codec.get_data_chunk_count(), codec.get_chunk_count()
+    sinfo = ec_util.StripeInfo(k * chunk, chunk)
+    objs = [rng.integers(0, 256, size=OSD_OBJECT_SIZE, dtype=np.uint8)
+            for _ in range(STORE_OBJECTS + STORE_CRASH_OBJECTS)]
+    nbytes = STORE_OBJECTS * OSD_OBJECT_SIZE
+    perf = PerfCountersCollection()
+    pec = create_ec_perf(perf)
+    sup = EngineSupervisor(enabled=True, perf=pec, probe_interval=OSD_PROBE_INTERVAL_S)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stores_") if root is None else None
+    root = root or tmp
+    stores = {s: BlueStore(os.path.join(root, f"osd.{s}"), sync="fsync") for s in range(n)}
+    launches = {}
+
+    def cid_of(s):
+        return CollectionId(f"{STORE_PG}s{s}")
+
+    def snapshot():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return gf_cuda.launch_counts()
+
+    def off_card(d, what):
+        t = d["totals"]
+        for key in ("failovers", "fallback_direct", "native_direct", "deadline_timeouts"):
+            if t[key]:
+                raise AssertionError(f"{t[key]} {key} in {what}: an op was served off the card")
+
+    async def main():
+        disp = ECDispatcher(
+            perf=pec, window=OSD_WINDOW_S, max_stripes=OSD_MAX_STRIPES, bucket=True,
+            max_workers=OSD_WORKERS, supervisor=sup, launch_deadline=OSD_LAUNCH_DEADLINE_S)
+        for s in stores.values():
+            s.mkfs()
+            s.mount()
+        gf_cuda.reset_launches()
+        start = snapshot()
+
+        # 1. the write: encode on the card, then each shard's transaction
+        commit_s = 0.0
+        committed = []
+
+        async def write(i, shard_stores):
+            """Encode object i on the card and commit each shard's
+            transaction; the shards that acknowledged go in ``committed``."""
+            nonlocal commit_s
+            shards = await disp.encode(sinfo, codec, objs[i])
+            t0 = time.perf_counter()
+            version = Eversion(STORE_EPOCH, i + 1)
+            txns = ec_write_txns(sinfo, store_oid(i), shards, OSD_OBJECT_SIZE, version,
+                                 Eversion())
+            acked = []
+            for s, st in shard_stores.items():
+                try:
+                    st.queue_transaction(txns[s], on_commit=lambda s=s: acked.append(s))
+                except CrashPoint:
+                    pass  # journaled, then the store's process died: no ack
+            commit_s += time.perf_counter() - t0
+            committed.append((i, sorted(acked)))
+            return shards
+
+        t0 = time.perf_counter()
+        written = await asyncio.gather(*(write(i, stores) for i in range(STORE_OBJECTS)))
+        wall = time.perf_counter() - t0
+        for i, (o, sh) in enumerate(zip(objs, written)):
+            _check_shards(f"stored op {i}", sh, ec_util.encode_fallback(sinfo, codec, o))
+        if any(acked != list(range(n)) for _, acked in committed):
+            raise AssertionError(f"a shard did not commit: {committed}")
+        log(f"  write: {STORE_OBJECTS} x {OSD_OBJECT_SIZE / 2**20:g} MiB through "
+            f"ECDispatcher.encode into {n} BlueStores (sync=fsync, no compression), "
+            f"{n * STORE_OBJECTS} transactions: {nbytes / wall / 1e9:.3f} GB/s "
+            f"({wall * 1e3:.1f} ms, host clock); the stores' commits "
+            f"{commit_s * 1e3:.1f} ms ({commit_s / wall:.1%}), waiting on the "
+            f"dispatcher's encode {(wall - commit_s) * 1e3:.1f} ms "
+            f"({1 - commit_s / wall:.1%})")
+
+        # 2. the restart
+        t0 = time.perf_counter()
+        for s in stores.values():
+            s.umount()
+            s.mount()
+        for s, st in stores.items():
+            report = st.fsck()
+            if report["errors"] or report["objects"] < STORE_OBJECTS:
+                raise AssertionError(f"shard {s} fsck after the restart: {report}")
+            log_s = read_log(st, cid_of(s), s)
+            versions = [e.version for e in log_s]
+            if versions != [Eversion(STORE_EPOCH, i + 1) for i in range(STORE_OBJECTS)]:
+                raise AssertionError(f"shard {s}'s PG log after the restart: {versions[:4]}...")
+        log(f"  restart: {n} stores unmounted and mounted, fsck clean, each PG log "
+            f"{STORE_OBJECTS} entries in version order ({time.perf_counter() - t0:.2f} s)")
+
+        # 3. the degraded read: shard 1 rots under object 0, shard 5 is down,
+        # shard 9 holds a wrong chunk of object 0 under its old crc table
+        rot = stores[STORE_BITROT_SHARD]
+        boff = rot._onodes[_okey(cid_of(STORE_BITROT_SHARD),
+                                 ObjectId(store_oid(0), STORE_BITROT_SHARD))].extents[0][2]
+        with open(os.path.join(rot.path, "block"), "r+b") as f:
+            f.seek(boff + 4097)
+            byte = f.read(1)
+            f.seek(boff + 4097)
+            f.write(bytes([byte[0] ^ 0x5A]))
+        try:
+            rot.read(cid_of(STORE_BITROT_SHARD), ObjectId(store_oid(0), STORE_BITROT_SHARD))
+            raise AssertionError("the flipped byte did not surface as BitrotError")
+        except BitrotError:
+            pass
+        stores[STORE_DOWN_SHARD].umount()
+        bad = stores[STORE_BAD_CRC_SHARD]
+        cid9, oid9 = cid_of(STORE_BAD_CRC_SHARD), ObjectId(store_oid(0), STORE_BAD_CRC_SHARD)
+        bad.apply(Transaction().write(cid9, oid9, chunk, bytes(chunk)))
+        up = {s: st for s, st in stores.items() if s != STORE_DOWN_SHARD}
+        since = snapshot()
+        t0 = time.perf_counter()
+        reads = [read_shards_degraded(sinfo, codec, up, store_oid(i))
+                 for i in range(STORE_OBJECTS)]
+        t_read = time.perf_counter() - t0
+        outs = await asyncio.gather(*(disp.decode_concat(sinfo, codec, chunks)
+                                      for chunks, _ in reads))
+        rwall = time.perf_counter() - t0
+        for i, (o, got) in enumerate(zip(objs, outs)):
+            if bytes(got[:OSD_OBJECT_SIZE]) != o.tobytes():
+                raise AssertionError(f"stored op {i}: the degraded read differs")
+        lost0 = set(range(n)) - set(reads[0][0])
+        if reads[0][1] != {STORE_BITROT_SHARD, STORE_BAD_CRC_SHARD} or lost0 != {
+                STORE_BITROT_SHARD, STORE_DOWN_SHARD, STORE_BAD_CRC_SHARD}:
+            raise AssertionError(f"object 0 read failed {reads[0][1]}, survivors "
+                                 f"{sorted(reads[0][0])}")
+        if any(r[1] for r in reads[1:]):
+            raise AssertionError(f"a shard failed outside object 0: "
+                                 f"{[(i, r[1]) for i, r in enumerate(reads) if r[1]]}")
+        launches["read"] = {nm: c - since[nm] for nm, c in snapshot().items()}
+        log(f"  degraded read, shard {STORE_DOWN_SHARD} down, every object's bytes == "
+            f"written: {nbytes / rwall / 1e9:.3f} GB/s ({rwall * 1e3:.1f} ms, host clock; "
+            f"the stores' reads and crc checks {t_read * 1e3:.1f} ms "
+            f"({t_read / rwall:.1%}), decode_concat {(rwall - t_read) * 1e3:.1f} ms); "
+            f"object 0: shard {STORE_BITROT_SHARD} BitrotError, shard "
+            f"{STORE_BAD_CRC_SHARD} failed StripeHashes.verify, decoded from "
+            f"{sorted(reads[0][0])}; launches {launches['read']}")
+        del outs, reads, written
+        stores[STORE_DOWN_SHARD].mount()
+
+        # 4. a crash and replay: shard 2's store is a WalStore
+        wal_path = os.path.join(root, f"osd.{STORE_WAL_SHARD}.wal")
+        wal = WalStore(wal_path, sync="fsync")
+        wal.mkfs()
+        wal.mount()
+        wal.crash_after = STORE_CRASH_AFTER
+        crash_stores = {**stores, STORE_WAL_SHARD: wal}
+        committed.clear()
+        first = STORE_OBJECTS
+        written = []
+        survivors = {s: st for s, st in crash_stores.items() if s != STORE_WAL_SHARD}
+        crashed = False
+        for i in range(first, first + STORE_CRASH_OBJECTS):
+            # the crashed OSD takes no further writes: its process died
+            written.append(await write(i, survivors if crashed else crash_stores))
+            if not crashed and wal.crash_after <= 0:
+                wal.crash_close()
+                crashed = True
+        journaled = list(range(first, first + STORE_CRASH_AFTER))
+        wal = WalStore(wal_path, sync="fsync")
+        wal.mount()
+        crash_stores[STORE_WAL_SHARD] = wal
+        cidw = cid_of(STORE_WAL_SHARD)
+        for j, i in enumerate(range(first, first + STORE_CRASH_OBJECTS)):
+            soid = ObjectId(store_oid(i), STORE_WAL_SHARD)
+            if i in journaled:
+                if wal.read(cidw, soid) != written[j][STORE_WAL_SHARD].tobytes():
+                    raise AssertionError(f"WalStore write {i} is torn after the replay")
+            elif wal.exists(cidw, soid):
+                raise AssertionError(f"WalStore write {i} came after the crash but is there")
+        wal_log = [e.version.version for e in read_log(wal, cidw, STORE_WAL_SHARD)]
+        if wal_log != [i + 1 for i in journaled]:
+            raise AssertionError(f"the WalStore's PG log after the replay: {wal_log}")
+        acked = [i for i, a in committed if len(a) >= k]
+        outs = []
+        for i in acked:
+            chunks, failed = read_shards_degraded(sinfo, codec, crash_stores, store_oid(i),
+                                                  lost=STORE_WAL_LOST)
+            if (STORE_WAL_SHARD in chunks) != (i in journaled):
+                raise AssertionError(f"object {i}: survivors {sorted(chunks)}, failed {failed}")
+            outs.append(disp.decode_concat(sinfo, codec, chunks))
+        for i, got in zip(acked, await asyncio.gather(*outs)):
+            if bytes(got[:OSD_OBJECT_SIZE]) != objs[i].tobytes():
+                raise AssertionError(f"object {i}: the read over the WalStore differs")
+        if len(acked) != STORE_CRASH_OBJECTS:
+            raise AssertionError(f"{len(acked)} of {STORE_CRASH_OBJECTS} writes acknowledged")
+        log(f"  crash and replay: shard {STORE_WAL_SHARD} on a WalStore (sync=fsync) "
+            f"crashed after journaling {STORE_CRASH_AFTER} of {STORE_CRASH_OBJECTS} writes "
+            f"(the last journaled but not applied); remounted, writes "
+            f"{journaled[0]}..{journaled[-1]} read back whole and the "
+            f"{STORE_CRASH_OBJECTS - STORE_CRASH_AFTER} later ones are absent; every "
+            f"acknowledged object decodes with shards {list(STORE_WAL_LOST)} lost, through "
+            f"the WalStore where it holds the object")
+        wal.umount()
+
+        # 5. nothing off the card
+        off_card(disp.dump(), "phase 12")
+        if sup.state != HEALTHY:
+            raise AssertionError(f"supervisor {STATE_NAMES[sup.state]} at the end")
+        await disp.stop()
+        launches["phase"] = {nm: c - start[nm] for nm, c in snapshot().items()}
+        log(f"  launches in the phase: {launches['phase']}; no op off the card "
+            f"(dispatcher totals {disp.dump()['totals']})")
+        if launches["phase"]["gf_matmul"] == 0:
+            raise AssertionError("gf_matmul was not launched in phase 12")
+        if dev.type == "cuda":
+            log(f"  card: {nvidia_smi('name,power.limit')}")
+        for st in stores.values():
+            st.umount()
+
+    try:
+        asyncio.run(asyncio.wait_for(main(), STORE_PHASE_LIMIT_S))
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return launches["phase"]
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "ceph_tpu_torch" / "__init__.py").exists():
@@ -2562,13 +2956,17 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     t_start = time.perf_counter()
 
-    log("== 1. card")
+    def phase(title: str) -> None:
+        log(f"== {title} ({time.perf_counter() - t_start:.1f} s in)")
+
+
+    phase("1. card")
     card = nvidia_smi("name,power.limit")
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; "
         f"torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}; "
         f"capability {torch.cuda.get_device_capability(0)}")
 
-    log("== 2. build")
+    phase("2. build")
     t0 = time.perf_counter()
     built = gf_cuda.build()
     log(f"  built {sorted(built) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s "
@@ -2578,11 +2976,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("== 3. kernels against their plain versions")
+    phase("3. kernels against their plain versions")
     inputs = check_kernels(dev, rng)
     log("  all kernel checks bit-exact")
 
-    log("== 4. main path through the registry")
+    phase("4. main path through the registry")
     gf_cuda.reset_launches()
     run_main_path(dev, rng)
     torch.cuda.synchronize()
@@ -2592,36 +2990,40 @@ def main() -> int:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
 
-    log("== 5. timing")
+    phase("5. timing")
     rows = time_kernels(dev, inputs, launches)
     time_end_to_end(dev, rng)
     time_packet_layout(dev, rng)
 
-    log("== 6. OSD EC engine")
+    phase("6. OSD EC engine")
     osd_figures = {}
     osd_launches = run_osd_engine(dev, rng, osd_figures)
 
-    log("== 7. CRUSH bulk placement")
+    phase("7. CRUSH bulk placement")
     rows.append(run_crush(dev, rng))
 
-    log("== 8. cluster map and churn planning")
+    phase("8. cluster map and churn planning")
     churn_launches = run_churn(dev, rng)
 
-    log("== 9. shared accelerator service")
+    phase("9. shared accelerator service")
     service_figures = {}
     accel_launches = run_accel_service(dev, rng, osd_figures, service_figures)
 
-    log("== 10. accelerator fleet behind the mon")
+    phase("10. accelerator fleet behind the mon")
     fleet_launches = run_accel_fleet(dev, rng, service_figures)
 
-    log("== 11. the operator surface: admin sockets, a kernel trace window, the mgr")
+    phase("11. the operator surface: admin sockets, a kernel trace window, the mgr")
     obs_launches = run_observability(dev, rng)
+
+    phase("12. the card's EC writes in the shard stores, a restart and a degraded read")
+    store_launches = run_osd_stores(dev, rng)
     for row in rows:
         row["launches_osd_engine"] = osd_launches[row["name"]]
         row["launches_churn"] = churn_launches[row["name"]]
         row["launches_accel_service"] = accel_launches[row["name"]]
         row["launches_accel_fleet"] = fleet_launches[row["name"]]
         row["launches_observability"] = obs_launches[row["name"]]
+        row["launches_osd_stores"] = store_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

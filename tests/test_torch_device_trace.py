@@ -50,6 +50,7 @@ from ceph_tpu_torch.ops.device_trace import (
     DeviceTracer,
     FlightRecorder,
     busy_seconds,
+    capture_check,
     classify_trace_event,
     device_spans,
     parse_trace_dir,
@@ -231,6 +232,72 @@ class TestFixture:
         assert busy_seconds(spans) == pytest.approx(
             (60 + 40 + 10 + 4 + 180) * US, abs=1e-12)
         assert busy_seconds([]) == 0.0
+
+
+class TestCaptureCheck:
+    """A capture is held against the launches the window counted: the
+    dump's ``capture`` key reports a short capture."""
+
+    LAUNCHED = {"gf_matmul": 1, "bitmatrix_xor": 1, "crush_straw2": 0}
+
+    def test_a_whole_capture(self, tmp_path):
+        events, threads = _kineto(tmp_path)
+        c = capture_check(events, self.LAUNCHED, threads, intervals=INTERVALS,
+                          anchor_offset=OFFSET)
+        assert c == {
+            "kernels": {"bitmatrix_xor": {"launched": 1, "captured": 1},
+                        "crush_straw2": {"launched": 0, "captured": 0},
+                        "gf_matmul": {"launched": 1, "captured": 1}},
+            "short": [],
+            "intervals_without_device_events": 0,
+        }
+
+    def test_fewer_kernel_events_than_launches_is_short(self, tmp_path):
+        events, threads = _kineto(tmp_path)
+        c = capture_check(events, dict(self.LAUNCHED, gf_matmul=4), threads)
+        assert c["short"] == ["gf_matmul"]
+        assert c["kernels"]["gf_matmul"] == {"launched": 4, "captured": 1}
+        # a launch whose kernel event the capture lost
+        lost = [e for e in events if "gf_matmul_kernel" not in e.get("name", "")]
+        c = capture_check(lost, self.LAUNCHED, threads)
+        assert c["short"] == ["gf_matmul"]
+        assert c["kernels"]["gf_matmul"] == {"launched": 1, "captured": 0}
+
+    def test_a_tap_interval_with_no_device_event(self, tmp_path):
+        events, threads = _kineto(tmp_path)
+        # the second engine's interval loses its launches and kernels
+        # (correlations 104 and 999): nothing of the capture falls in it
+        lost = [e for e in events
+                if (e.get("args") or {}).get("correlation") not in (104, 999)]
+        c = capture_check(lost, self.LAUNCHED, threads, intervals=INTERVALS,
+                          anchor_offset=OFFSET)
+        assert c["intervals_without_device_events"] == 1
+        assert c["short"] == ["bitmatrix_xor"]
+        far = INTERVALS + [(OFFSET + 9.0, OFFSET + 9.001, "ec_shards", "k")]
+        c = capture_check(events, self.LAUNCHED, threads, intervals=far,
+                          anchor_offset=OFFSET)
+        assert c["intervals_without_device_events"] == 1
+        # without an anchor no interval can be placed
+        c = capture_check(events, self.LAUNCHED, threads, intervals=INTERVALS)
+        assert c["intervals_without_device_events"] == 2
+
+    def test_the_dump_reports_a_short_capture(self, monkeypatch, tmp_path):
+        """Through the window service: the launch counts move by more
+        than the capture holds, and the dump's new ``capture`` key says
+        so (the summary's keys keep their meaning)."""
+        events, threads = _kineto(tmp_path)
+        counts = iter([{"gf_matmul": 10, "bitmatrix_xor": 3, "crush_straw2": 0},
+                       {"gf_matmul": 14, "bitmatrix_xor": 4, "crush_straw2": 0}])
+        monkeypatch.setattr(device_trace, "_launch_counts", lambda: next(counts))
+        monkeypatch.setattr(device_trace, "parse_trace_dir",
+                            lambda _d: (events, threads))
+        svc = DeviceTracer()
+        assert svc.start(duration=5.0, device="cpu").get("success")
+        r = svc.stop()
+        assert r["capture"]["short"] == ["gf_matmul"]
+        assert r["capture"]["kernels"]["gf_matmul"] == {"launched": 4, "captured": 1}
+        assert r["capture"]["kernels"]["bitmatrix_xor"] == {"launched": 1, "captured": 1}
+        assert r["op_events"] == 7 and svc.dump() == r
 
 
 # -- the window service -------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port stands alone and never falls back.
 
-- Every ``ceph_tpu_torch`` module, and ``chip_smoke.py``, imports with
-  ``jax``, ``jaxlib`` and ``ceph_tpu`` blocked.  This runs in a
-  subprocess, because this suite's conftest imports jax.
+- Every ``ceph_tpu_torch`` module, ``chip_smoke.py`` and
+  ``trace_windows.py`` import with ``jax``, ``jaxlib`` and ``ceph_tpu``
+  blocked.  This runs in a subprocess, because this suite's conftest
+  imports jax.
 - Without CUDA, the default entry points and any request for ``cuda``
   raise; nothing lands on the CPU unless asked to.
 - A CPU tensor takes the plain version and leaves the kernels' launch
@@ -55,7 +56,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
 
     sys.meta_path.insert(0, Block())
     import ceph_tpu_torch
-    names = ["chip_smoke"] + [
+    names = ["chip_smoke", "trace_windows"] + [
         m.name for m in pkgutil.walk_packages(ceph_tpu_torch.__path__, "ceph_tpu_torch.")
     ]
     for name in names:
@@ -107,6 +108,15 @@ _SLICE_MODULES = {
     "ceph_tpu_torch.mgr", "ceph_tpu_torch.mgr.daemon",
     "ceph_tpu_torch.mgr.modules", "ceph_tpu_torch.mgr.tsdb",
     "ceph_tpu_torch.mgr.trace_store",
+    # the stores and the PG-level helpers beneath the OSD
+    "ceph_tpu_torch.store.memstore", "ceph_tpu_torch.store.wal",
+    "ceph_tpu_torch.store.blue", "ceph_tpu_torch.compressor",
+    "ceph_tpu_torch.compressor.none", "ceph_tpu_torch.compressor.zlib",
+    "ceph_tpu_torch.compressor.bz2", "ceph_tpu_torch.compressor.lzma",
+    "ceph_tpu_torch.compressor.snappy", "ceph_tpu_torch.compressor.zstd",
+    "ceph_tpu_torch.osd.pg_log", "ceph_tpu_torch.osd.snaps",
+    "ceph_tpu_torch.osd.peering", "ceph_tpu_torch.osd.reservations",
+    "ceph_tpu_torch.osd.client_ledger", "ceph_tpu_torch.common.lockdep",
 }
 
 
