@@ -1,7 +1,6 @@
 """ceph-daemon: run ONE daemon in its own OS process.
 
-Counterpart of ``ceph_tpu/tools/daemon.py``, of which the ``mon`` and
-``accel`` roles are ported:
+Counterpart of ``ceph_tpu/tools/daemon.py``, all three roles:
 
 - ``python -m ceph_tpu_torch.tools.daemon mon --rank 0 --addr
   127.0.0.1:0 --monmap 127.0.0.1:0 --store DIR [--max-osds N]`` runs one
@@ -14,19 +13,24 @@ Counterpart of ``ceph_tpu/tools/daemon.py``, of which the ``mon`` and
   mon-published AccelMap under ``--locality``.  The daemon owns the card:
   without ``--device cpu`` it raises ``DeviceUnavailableError`` when CUDA
   is absent.
+- ``python -m ceph_tpu_torch.tools.daemon osd --id 0 --monmap ADDRS
+  --store DIR [--store-kind wal|blue] [--heartbeat-interval S]
+  [--config KEY=VAL ...] [--device cpu]`` runs one
+  :class:`~ceph_tpu_torch.osd.OSD` over a durable store until SIGTERM
+  and prints ``osd.<id> up at <addr>``.  Its codecs live on the card:
+  without ``--device cpu`` it raises ``DeviceUnavailableError`` when
+  CUDA is absent.
 
-Both roles read their options from the environment, as every
+Every role reads their options from the environment, as every
 ``Config()`` does (``CEPH_TPU_ARGS='--name value ...'``,
 ``common/config.py``), with no flag of their own:
 ``CEPH_TPU_ARGS='--admin_socket /run/{name}.asok'`` serves each
 daemon's admin socket at that path, ``{name}`` expanded to
-``mon.<rank>`` or ``accel.<id>``.
+``mon.<rank>``, ``accel.<id>`` or ``osd.<id>``.
 
 ``--monmap`` takes one address, a comma list, or a monmap file written
 by ``tools/monmaptool.py``.  ``--watch-parent PID`` makes the daemon exit
-when that process dies, so a harness never leaks daemons.  The ``osd``
-role raises ``NotImplementedError`` until its slice (ROADMAP Queue A
-item 6).
+when that process dies, so a harness never leaks daemons.
 """
 
 from __future__ import annotations
@@ -37,9 +41,16 @@ import os
 import signal
 import sys
 
-_NOT_PORTED = {
-    "osd": "the OSD daemon waits for ROADMAP Queue A item 6",
-}
+
+def _make_store(path: str, kind: str):
+    from ..store import WalStore
+    from ..store.blue import BlueStore
+
+    cls = BlueStore if kind == "blue" else WalStore
+    store = cls(path, sync="flush")
+    if not store.formatted():
+        store.mkfs()
+    return store
 
 
 async def _run_mon(args) -> None:
@@ -89,6 +100,54 @@ async def _run_accel(args) -> None:
     print(f"accel.{args.id} up at {acc.addr}", flush=True)
     await _until_term(stop, args.watch_parent)
     await acc.stop()
+
+
+async def _run_osd(args) -> None:
+    from ..device import resolve
+    from ..osd.daemon import OSD
+    from .monmaptool import resolve_mon_arg
+
+    # the card first: without it nothing is created on disk
+    device = resolve(args.device)
+    store = _make_store(args.store, args.store_kind)
+    monmap = resolve_mon_arg(args.monmap)
+    config = None
+    if args.config:
+        # generic option overrides (--config key=val, repeatable): the
+        # multiprocess harness needs per-daemon knobs (waterfall
+        # sampling, injection hooks) exactly like MiniCluster's
+        # config_overrides — Config coerces through the option table,
+        # so a typo'd key or bad value fails loudly at boot
+        from ..common import Config
+
+        overrides = {}
+        for kv in args.config:
+            if "=" not in kv:
+                raise SystemExit(
+                    f"--config expects KEY=VAL, got {kv!r}"
+                )
+            k, v = kv.split("=", 1)
+            overrides[k] = v
+        config = Config(overrides=overrides)
+    osd = OSD(
+        args.id, monmap,
+        store=store, heartbeat_interval=args.heartbeat_interval,
+        # grace scaled to the interval: co-scheduled single-core
+        # interpreters can delay a ping by a full interval without the
+        # peer being dead
+        heartbeat_grace=max(3.0, args.heartbeat_interval * 4),
+        config=config,
+        device=device,
+    )
+    # a real process: suicide must end the PROCESS even when a wedged
+    # non-daemon executor thread would block normal interpreter exit
+    # (reference abort() parity; see OSD._hb_suicide)
+    osd.suicide_hard_exit = True
+    await osd.start()
+    stop = _arm_term()
+    print(f"osd.{args.id} up at {osd.addr}", flush=True)
+    await _until_term(stop, args.watch_parent)
+    await osd.stop()
 
 
 def _arm_term() -> asyncio.Event:
@@ -149,8 +208,6 @@ async def _until_term(stop: asyncio.Event,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="ceph-daemon", description=__doc__)
     sub = p.add_subparsers(dest="role", required=True)
-    for role in _NOT_PORTED:
-        sub.add_parser(role, add_help=False)
     pm = sub.add_parser("mon")
     pm.add_argument("--rank", type=int, required=True)
     pm.add_argument("--addr", required=True, help="host:port to bind")
@@ -158,6 +215,21 @@ def main(argv=None) -> int:
                     help="mon addrs: comma-sep list or a monmap file")
     pm.add_argument("--store", required=True)
     pm.add_argument("--max-osds", type=int, default=16)
+    po = sub.add_parser("osd")
+    po.add_argument("--id", type=int, required=True)
+    po.add_argument("--monmap", required=True,
+                    help="mon addrs: comma-sep list or a monmap file")
+    po.add_argument("--store", required=True)
+    po.add_argument("--store-kind", default="wal", choices=["wal", "blue"])
+    po.add_argument("--heartbeat-interval", type=float, default=1.0)
+    po.add_argument("--config", action="append", default=[],
+                    metavar="KEY=VAL",
+                    help="daemon config override (repeatable; coerced "
+                         "through the option table, bad keys fail at "
+                         "boot)")
+    po.add_argument("--device", default=None,
+                    help="torch device the daemon's codecs live on "
+                         "(default: the CUDA card; 'cpu' for tests)")
     pa = sub.add_parser("accel")
     pa.add_argument("--id", type=int, required=True)
     pa.add_argument("--addr", required=True, help="host:port to bind")
@@ -172,19 +244,13 @@ def main(argv=None) -> int:
     pa.add_argument("--device", default=None,
                     help="torch device the daemon's codecs live on "
                          "(default: the CUDA card; 'cpu' for tests)")
-    for sp in (pm, pa):
+    for sp in (pm, po, pa):
         sp.add_argument("--verbose", action="store_true")
         sp.add_argument(
             "--watch-parent", type=int, default=None, metavar="PID",
             help="exit when this pid dies (leak-proofing for harnesses)",
         )
-    args, rest = p.parse_known_args(argv)
-    if args.role in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {args.role} role is not supported: "
-            f"{_NOT_PORTED[args.role]}")
-    if rest:
-        p.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = p.parse_args(argv)
     _arm_parent_death(args.watch_parent)
     if args.verbose:
         import logging
@@ -193,7 +259,8 @@ def main(argv=None) -> int:
             level=logging.INFO,
             format="%(asctime)s %(name)s %(message)s",
         )
-    coro = {"mon": _run_mon, "accel": _run_accel}[args.role](args)
+    coro = {"mon": _run_mon, "osd": _run_osd,
+            "accel": _run_accel}[args.role](args)
     asyncio.run(coro)
     return 0
 

@@ -188,13 +188,37 @@ Phases, each fatal on any mismatch or exception:
    write's and the read's GB/s (host clock) and how each splits between
    the stores and the dispatcher.  The phase runs under
    ``asyncio.wait_for``.
+13. the port's OSD data path, with the launch counts set to 0 just
+   before its traffic: ``MiniCluster(n_osds=14, store_kind="blue")`` on
+   the card (one mon, 14 ``OSD``s in this event loop, each with its
+   ``ECDispatcher`` on the card, ``osd_max_backfills`` 16); pool A (isa
+   k=8 m=3, stripe unit 4096, 8 PGs, ``min_size`` 8) and pool B
+   (jerasure cauchy_good k=10 m=4, packetsize 4096, chunk 32768, 4 PGs),
+   both profiles set through ``osd erasure-code-profile set`` with their
+   ``plugin``.  Through the port's ``RadosClient``, 16 ops in flight:
+   64 × 4 MiB ``write_full`` to pool A and 16 to pool B; every object
+   read back; one non-primary OSD of object 0's PG killed and every
+   object read again; two more killed (that PG loses three shards,
+   every pool-B PG three) and every object read again (multi-erasure
+   decodes: ``gf_matmul`` and ``bitmatrix_xor``); 16 more pool-A writes
+   with the three down; the three restarted, recovery waited for until
+   every shard chunk of every object is at its primary's version, and
+   everything read once more.  Every read must equal what was written;
+   every shard chunk in every OSD's store must equal the host engine's
+   encode of its object and its ``StripeHashes`` verify; both kernels
+   must launch in the phase, ``gf_matmul`` in the three-down read and in
+   the recovery; no OSD's dispatcher or ``ec`` counters may show an op
+   served off the card.  It prints each step's GB/s (host clock), the
+   recovery's wall time and the launches of each step.  The phase runs
+   under ``asyncio.wait_for`` and stops the mon before the OSDs.
 
 Output: the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on its main path, phase 4 or 7, with ``launches_osd_engine``
 from phase 6, ``launches_churn`` from phase 8,
 ``launches_accel_service`` from phase 9, ``launches_accel_fleet``
 from phase 10, ``launches_observability`` from phase 11 and
-``launches_osd_stores`` from phase 12 beside it), and last
+``launches_osd_stores`` from phase 12 and ``launches_osd_cluster`` from
+phase 13 beside it), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -2936,6 +2960,316 @@ def run_osd_stores(dev, rng, root: str | None = None) -> dict:
     return launches["phase"]
 
 
+
+CLUSTER_OSDS = 14  # cauchy_good's k+m
+CLUSTER_OBJECT_SIZE = OSD_OBJECT_SIZE
+CLUSTER_A_OBJECTS = 64
+CLUSTER_B_OBJECTS = 16
+CLUSTER_LATE_OBJECTS = 16  # pool A writes while three OSDs are down
+CLUSTER_INFLIGHT = 16
+CLUSTER_PG_NUM = {"a": 8, "b": 4}
+# the pools' profiles, each naming its plugin, and their stripe units
+# (pool A at Ceph's default 4096; pool B at its 32 KiB chunk)
+CLUSTER_POOLS = {
+    "a": ({"plugin": "isa", "k": "8", "m": "3"}, 4096),
+    "b": ({"plugin": "jerasure", "technique": "cauchy_good", "k": "10", "m": "4",
+           "packetsize": "4096"}, 32768),
+}
+CLUSTER_OP_TIMEOUT_S = 120.0
+# recovery reservations per OSD (Config's default is 1, Ceph's too): every
+# primary reserves a slot on each of its 11 or 14 members, so with one slot
+# the primaries of the PGs to backfill queue behind each other until
+# osd_recovery_reserve_timeout (30 s) and retry; an operator raises it to
+# backfill PGs in parallel
+CLUSTER_MAX_BACKFILLS = 16
+CLUSTER_RECOVERY_LIMIT_S = 300.0
+CLUSTER_PHASE_LIMIT_S = 900.0
+
+
+def cluster_oid(pool: str, i: int) -> str:
+    return f"rbd_data.{pool}13.{i:016x}"
+
+
+def run_osd_cluster(dev, rng, root: str | None = None) -> dict:
+    """Phase 13 (see the module docstring).  ``root`` holds the mon's and
+    the OSDs' stores (a temporary directory when None).  Returns the
+    kernels' launch counts over the phase, counted from one reset."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.ec_util import StripeHashes
+    from ceph_tpu_torch.osd.osdmap import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.rados import MiniCluster
+    from ceph_tpu_torch.store import CollectionId, ObjectId
+
+    size = CLUSTER_OBJECT_SIZE
+    objs = {
+        "a": [rng.integers(0, 256, size=size, dtype=np.uint8)
+              for _ in range(CLUSTER_A_OBJECTS + CLUSTER_LATE_OBJECTS)],
+        "b": [rng.integers(0, 256, size=size, dtype=np.uint8)
+              for _ in range(CLUSTER_B_OBJECTS)],
+    }
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_") if root is None else None
+    root = root or tmp
+    launches = {}
+
+    def snapshot():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return gf_cuda.launch_counts()
+
+    def off_card(osd, what):
+        """No op of this OSD left the card's lane."""
+        t = osd.ec_dispatch.dump()["totals"]
+        pec = osd.perf.get("ec")
+        bad = {key: t[key] for key in ("failovers", "replayed_ops", "fallback_direct",
+                                       "native_direct", "deadline_timeouts") if t[key]}
+        bad.update({key: pec.get(key) for key in (
+            "engine_failovers", "replayed_ops", "launch_deadline_timeouts",
+            "dispatch_native_direct") if pec.get(key)})
+        if bad:
+            raise AssertionError(f"{osd.name} in {what}: {bad}: an op was served off the card")
+        return t["lanes"]["device"]["batches"]
+
+    async def main():
+        cluster = MiniCluster(n_osds=CLUSTER_OSDS, store_kind="blue", store_dir=root,
+                              config_overrides={"osd_max_backfills": CLUSTER_MAX_BACKFILLS},
+                              device=dev)
+        t0 = time.perf_counter()
+        await cluster.start()
+        log(f"  cluster: a mon and {CLUSTER_OSDS} OSDs on BlueStore (sync=flush) up in "
+            f"{time.perf_counter() - t0:.2f} s")
+        device_batches = 0
+        try:
+            cl = await cluster.client(op_timeout=CLUSTER_OP_TIMEOUT_S)
+            pools = {}
+            for name, (profile, stripe_unit) in CLUSTER_POOLS.items():
+                code, status, _ = await cl.command({
+                    "prefix": "osd erasure-code-profile set", "name": f"prof_{name}",
+                    "profile": dict(profile)})
+                if code != 0:
+                    raise AssertionError(f"profile {name}: {status}")
+                await cl.create_pool(name, "erasure", erasure_code_profile=f"prof_{name}",
+                                     pg_num=CLUSTER_PG_NUM[name], stripe_unit=stripe_unit)
+                pools[name] = cl.osdmap.lookup_pool(name)
+            # pool A takes writes with three shards lost (min_size = k)
+            code, status, _ = await cl.command({"prefix": "osd pool set", "pool": "a",
+                                                "var": "min_size", "val": "8"})
+            if code != 0:
+                raise AssertionError(f"min_size: {status}")
+            log(f"  pools: a (isa k=8 m=3, {CLUSTER_PG_NUM['a']} PGs, min_size 8) and b "
+                f"(cauchy_good k=10 m=4, {CLUSTER_PG_NUM['b']} PGs) after "
+                f"{time.perf_counter() - t0:.2f} s")
+            # the host's scalar CRUSH walk, which every op runs twice (the
+            # client's and the primary's placement) and every OSD once a PG
+            # a map epoch: one pg_to_up_acting_osds a PG of each pool
+            m = cluster.mon.osdmap
+            walk_ms = {}
+            for name, pool in pools.items():
+                pgs = m.pgs_of_pool(pool.id)
+                t1 = time.perf_counter()
+                for pg in pgs:
+                    m.pg_to_up_acting_osds(pg)
+                walk_ms[name] = (time.perf_counter() - t1) / len(pgs) * 1e3
+            log(f"  the scalar CRUSH walk on the host: {walk_ms['a']:.3f} ms a pool-A placement "
+                f"(11 of {CLUSTER_OSDS} OSDs), {walk_ms['b']:.3f} ms a pool-B one "
+                f"({CLUSTER_OSDS} of {CLUSTER_OSDS}), the mean of one pg_to_up_acting_osds "
+                f"a PG")
+            ios = {name: cl.io_ctx(name) for name in pools}
+            gate = asyncio.Semaphore(CLUSTER_INFLIGHT)
+            names = [("a", i) for i in range(CLUSTER_A_OBJECTS)] + [
+                ("b", i) for i in range(CLUSTER_B_OBJECTS)]
+            nbytes = len(names) * size
+
+            async def write(pool, i):
+                async with gate:
+                    await ios[pool].write_full(cluster_oid(pool, i), objs[pool][i].tobytes())
+
+            async def read(pool, i):
+                async with gate:
+                    got = await ios[pool].read(cluster_oid(pool, i))
+                if got != objs[pool][i].tobytes():
+                    raise AssertionError(f"{cluster_oid(pool, i)}: the read differs")
+
+            async def read_all(what, items):
+                since = snapshot()
+                t0 = time.perf_counter()
+                await asyncio.gather(*(read(p, i) for p, i in items))
+                wall = time.perf_counter() - t0
+                launches[what] = {nm: c - since[nm] for nm, c in snapshot().items()}
+                log(f"  {what}: {len(items)} x {size / 2**20:g} MiB, every read == written: "
+                    f"{len(items) * size / wall / 1e9:.3f} GB/s ({wall * 1e3:.1f} ms, host "
+                    f"clock); launches {launches[what]}")
+
+            gf_cuda.reset_launches()
+            start = snapshot()
+
+            # 1. the writes
+            t0 = time.perf_counter()
+            await asyncio.gather(*(write(p, i) for p, i in names))
+            wall = time.perf_counter() - t0
+            launches["write"] = {nm: c - start[nm] for nm, c in snapshot().items()}
+            log(f"  write: {CLUSTER_A_OBJECTS} x {size / 2**20:g} MiB to pool A (isa k=8 m=3, "
+                f"stripe unit 4096) and {CLUSTER_B_OBJECTS} to pool B (cauchy_good k=10 m=4, "
+                f"packetsize 4096, chunk 32768) through RadosClient, {CLUSTER_INFLIGHT} in "
+                f"flight, {CLUSTER_OSDS} OSDs on BlueStore: {nbytes / wall / 1e9:.3f} GB/s "
+                f"({wall * 1e3:.1f} ms, host clock); launches {launches['write']}")
+
+            # 2. healthy, degraded and three-down reads
+            await read_all("healthy read", names)
+            pg0, acting0, primary0 = cl.osdmap.object_to_acting(cluster_oid("a", 0),
+                                                                pools["a"].id)
+            victims = [o for o in acting0 if o != primary0][:3]
+            for n_down, group in ((1, victims[:1]), (3, victims[1:])):
+                t0 = time.perf_counter()
+                for v in group:
+                    device_batches += off_card(cluster.osds[v], "the run before its kill")
+                    await cluster.kill_osd(v)
+                    await cluster.wait_for_osd_down(v)
+                log(f"  killed {['osd.%d' % v for v in group]}, marked down in "
+                    f"{time.perf_counter() - t0:.2f} s")
+                what = ("degraded read, 1 OSD down" if n_down == 1
+                        else "three-down read, 3 OSDs down")
+                await read_all(what, names)
+            log(f"  down: osd.{victims[0]}, then osd.{victims[1]} and osd.{victims[2]} "
+                f"(pg {pg0} of pool A loses three shards; every pool B PG loses three)")
+
+            # 3. writes while three are down, then the rejoin and the backfill
+            late = [("a", i) for i in range(CLUSTER_A_OBJECTS,
+                                            CLUSTER_A_OBJECTS + CLUSTER_LATE_OBJECTS)]
+            since = snapshot()
+            t0 = time.perf_counter()
+            await asyncio.gather(*(write(p, i) for p, i in late))
+            wall = time.perf_counter() - t0
+            launches["degraded write"] = {nm: c - since[nm] for nm, c in snapshot().items()}
+            log(f"  degraded write: {len(late)} x {size / 2**20:g} MiB to pool A with "
+                f"3 OSDs down: {len(late) * size / wall / 1e9:.3f} GB/s "
+                f"({wall * 1e3:.1f} ms, host clock); launches {launches['degraded write']}")
+            since = snapshot()
+            pushes0 = sum(o.perf.get("recovery").get("pushes") for o in cluster.osds.values())
+            t0 = time.perf_counter()
+            for v in victims:
+                await cluster.restart_osd(v)
+            for v in victims:
+                await cluster.wait_for_osd_up(v)
+            every = names + late
+
+            def version(osd, pg, shard, oid):
+                cid, soid = CollectionId(f"{pg}s{shard}"), ObjectId(oid, shard)
+                try:
+                    return json.loads(cluster.stores[osd].getattr(cid, soid, OI_KEY))["version"]
+                except KeyError:
+                    return None
+
+            placed = {}  # the scalar CRUSH walk is costly: once per map epoch
+
+            def stale():
+                m = cluster.mon.osdmap
+                if placed.get("epoch") != m.epoch:
+                    placed.clear()
+                    placed["epoch"] = m.epoch
+                    for p, i in every:
+                        oid = cluster_oid(p, i)
+                        placed[oid] = m.object_to_acting(oid, pools[p].id)
+                out = []
+                for p, i in every:
+                    oid = cluster_oid(p, i)
+                    pg, acting, primary = placed[oid]
+                    want = version(primary, pg, acting.index(primary), oid)
+                    out += [(oid, s) for s, o in enumerate(acting) if o != CRUSH_ITEM_NONE
+                            and (want is None or version(o, pg, s, oid) != want)]
+                return out
+
+            try:
+                async with asyncio.timeout(CLUSTER_RECOVERY_LIMIT_S):
+                    while left := stale():
+                        await asyncio.sleep(0.1)
+            except TimeoutError:
+                raise AssertionError(
+                    f"recovery left {len(left)} shard chunks stale after "
+                    f"{CLUSTER_RECOVERY_LIMIT_S:g} s, e.g. {left[:6]}; recovery counters "
+                    f"{ {o.name: o.perf.get('recovery').dump() for o in cluster.osds.values()} }"
+                ) from None
+            recovery_s = time.perf_counter() - t0
+            launches["recovery"] = {nm: c - since[nm] for nm, c in snapshot().items()}
+            pushes = sum(o.perf.get("recovery").get("pushes")
+                         for o in cluster.osds.values()) - pushes0
+            if not pushes:
+                raise AssertionError(f"no recovery push after the rejoin ({left})")
+            log(f"  recovery: osd.{victims[0]}, osd.{victims[1]} and osd.{victims[2]} "
+                f"restarted; every stale or missing shard chunk at its primary's version "
+                f"after {recovery_s:.3f} s (host clock), {pushes} pushes; launches "
+                f"{launches['recovery']}")
+            await read_all("read after recovery", every)
+
+            # 4. every stored chunk against the host engine's encode
+            t0 = time.perf_counter()
+            osd0 = next(iter(cluster.osds.values()))
+            for p in pools:
+                codec, sinfo = osd0._pool_codec(pools[p])
+                if dev.type == "cuda" and codec.device != dev:
+                    raise AssertionError(f"pool {p}'s codec on {codec.device}, expected {dev}")
+                for q, i in every:
+                    if q != p:
+                        continue
+                    oid = cluster_oid(p, i)
+                    want = ec_util.encode_fallback(
+                        sinfo, codec, sinfo.pad_to_stripe(objs[p][i].tobytes()))
+                    pg, acting, _primary = cluster.mon.osdmap.object_to_acting(oid, pools[p].id)
+                    for s, o in enumerate(acting):
+                        if o == CRUSH_ITEM_NONE:
+                            continue  # a slot CRUSH left empty holds no chunk
+                        cid, soid = CollectionId(f"{pg}s{s}"), ObjectId(oid, s)
+                        chunk = np.frombuffer(cluster.stores[o].read(cid, soid), dtype=np.uint8)
+                        if not np.array_equal(chunk, want[s]):
+                            raise AssertionError(f"{oid} shard {s} on osd.{o} differs from "
+                                                 "the host engine's encode")
+                        hashes = StripeHashes.from_dict(json.loads(
+                            cluster.stores[o].getattr(cid, soid, StripeHashes.XATTR_KEY)))
+                        if not hashes.verify(s, 0, chunk):
+                            raise AssertionError(f"{oid} shard {s}: StripeHashes.verify fails")
+            log(f"  stores: every shard chunk of the {len(every)} objects on every OSD == "
+                f"the host engine's encode, every crc table verifies "
+                f"({time.perf_counter() - t0:.2f} s)")
+
+            # 5. nothing off the card
+            for osd in cluster.osds.values():
+                device_batches += off_card(osd, "phase 13")
+            launches["phase"] = {nm: c - start[nm] for nm, c in snapshot().items()}
+            log(f"  launches in the phase: {launches['phase']}; {device_batches} device-lane "
+                f"launches over the OSDs' dispatchers, no op off the card")
+            for name in gf_cuda.EC_KERNELS:
+                if launches["phase"][name] == 0:
+                    raise AssertionError(f"{name} was not launched in phase 13")
+            if launches["three-down read, 3 OSDs down"]["gf_matmul"] == 0:
+                raise AssertionError("no gf_matmul decode in the three-down read")
+            if launches["recovery"]["gf_matmul"] == 0:
+                raise AssertionError("no gf_matmul in the recovery")
+            if dev.type == "cuda":
+                log(f"  card: {nvidia_smi('name,power.limit')}")
+        finally:
+            # the mon first: OSDs stopped under a live mon would each make
+            # a map epoch, and every epoch costs each survivor a walk of
+            # its PGs' placements
+            t0 = time.perf_counter()
+            for rank in list(cluster.mons):
+                await cluster.kill_mon(rank)
+            await cluster.stop()
+            log(f"  cluster stopped in {time.perf_counter() - t0:.2f} s")
+
+    try:
+        asyncio.run(asyncio.wait_for(main(), CLUSTER_PHASE_LIMIT_S))
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return launches["phase"]
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "ceph_tpu_torch" / "__init__.py").exists():
@@ -3017,6 +3351,9 @@ def main() -> int:
 
     phase("12. the card's EC writes in the shard stores, a restart and a degraded read")
     store_launches = run_osd_stores(dev, rng)
+
+    phase("13. the port's MiniCluster on the card: client EC writes, degraded reads, a backfill")
+    cluster_launches = run_osd_cluster(dev, rng)
     for row in rows:
         row["launches_osd_engine"] = osd_launches[row["name"]]
         row["launches_churn"] = churn_launches[row["name"]]
@@ -3024,6 +3361,7 @@ def main() -> int:
         row["launches_accel_fleet"] = fleet_launches[row["name"]]
         row["launches_observability"] = obs_launches[row["name"]]
         row["launches_osd_stores"] = store_launches[row["name"]]
+        row["launches_osd_cluster"] = cluster_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -17,8 +17,8 @@
   CPU, with a mon (``mon_addr``, ``--monmap``) or an admin socket too,
   and the option of the daemon that is not ported yet (``osd_ec_mesh``)
   raises ``NotImplementedError`` instead of being ignored, with or
-  without a mon or a socket; so does the ``osd`` role of
-  ``tools.daemon``.
+  without a mon or a socket.  The ``osd`` role of ``tools.daemon`` raises
+  without CUDA unless given the CPU too, before it makes its store.
 """
 
 import pathlib
@@ -117,6 +117,11 @@ _SLICE_MODULES = {
     "ceph_tpu_torch.osd.pg_log", "ceph_tpu_torch.osd.snaps",
     "ceph_tpu_torch.osd.peering", "ceph_tpu_torch.osd.reservations",
     "ceph_tpu_torch.osd.client_ledger", "ceph_tpu_torch.common.lockdep",
+    # the OSD daemon, its recovery, the client and MiniCluster
+    "ceph_tpu_torch.osd", "ceph_tpu_torch.osd.daemon",
+    "ceph_tpu_torch.osd.recovery", "ceph_tpu_torch.rados",
+    "ceph_tpu_torch.rados.client", "ceph_tpu_torch.rados.cluster",
+    "ceph_tpu_torch.rados.striper",
 }
 
 
@@ -273,7 +278,7 @@ def test_accel_daemon_raises_without_cuda_unless_asked_for_the_cpu():
     assert acc.device.type == "cpu"
 
 
-def test_accel_role_of_the_daemon_tool_raises_without_cuda():
+def test_accel_role_of_the_daemon_tool_raises_without_cuda(tmp_path):
     _needs_no_cuda()
     from ceph_tpu_torch.tools import daemon
 
@@ -283,9 +288,12 @@ def test_accel_role_of_the_daemon_tool_raises_without_cuda():
     with pytest.raises(DeviceUnavailableError):
         daemon.main(["accel", "--id", "0", "--addr", "127.0.0.1:0",
                      "--monmap", "127.0.0.1:1", "--locality", "host0"])
-    with pytest.raises(NotImplementedError):
+    # so does the osd role, before it makes its store
+    store = tmp_path / "osd.0"
+    with pytest.raises(DeviceUnavailableError):
         daemon.main(["osd", "--id", "0", "--monmap", "127.0.0.1:1",
-                     "--store", "s"])
+                     "--store", str(store)])
+    assert not store.exists()
     # the mon role is ported: its arguments are checked, not refused
     with pytest.raises(SystemExit):
         daemon.main(["mon", "--rank", "0"])
