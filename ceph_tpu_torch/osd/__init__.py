@@ -1,5 +1,5 @@
-"""The OSD: the daemon (``daemon.OSD``) and its recovery
-(``recovery``); its erasure-code engine: stripe math (``ec_util``),
+"""The OSD: the daemon (``daemon.OSD``), its recovery (``recovery``),
+scrub and repair (``scrub``) and cache tiering (``tiering``); its erasure-code engine: stripe math (``ec_util``),
 write planning (``ec_transaction``), the cross-op microbatch dispatcher
 (``ec_dispatch``) and its engine supervisor (``ec_failover``); the
 cluster map (``osdmap``) and device-planned churn (``churn``); and the

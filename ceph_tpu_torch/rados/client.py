@@ -14,9 +14,9 @@ Counterpart of ``ceph_tpu/rados/client.py``, whole.  Its frames are the
 reference's, so this client drives a cluster of either package, and the
 reference's client drives a cluster of this one.  The client has no
 card: it encodes nothing and places objects by the scalar CRUSH walk
-(``osd/osdmap.py``).  ``scrub_pool`` is kept, but this package's OSD
-answers ``MOSDScrub`` with an error until its scrub is ported (ROADMAP
-Queue A item 6b).
+(``osd/osdmap.py``).  With a cache tier's overlay set, ops on the base
+pool's name go to the cache pool (``read_tier`` / ``write_tier``), whose
+primary promotes from and flushes to the base.
 """
 
 from __future__ import annotations

@@ -211,14 +211,44 @@ Phases, each fatal on any mismatch or exception:
    served off the card.  It prints each step's GB/s (host clock), the
    recovery's wall time and the launches of each step.  The phase runs
    under ``asyncio.wait_for`` and stops the mon before the OSDs.
+14. scrub, repair and a cache tier on the port's OSD, with the launch
+   counts set to 0 just before its traffic: the same ``MiniCluster`` of 14
+   OSDs on BlueStore, pools A and B as in phase 13, a replicated cache
+   pool (size 3, 4 PGs) and a replicated pool for object classes.  32 ×
+   4 MiB written to pool A; shards rotted behind the OSDs' backs (object
+   0 shard 1's bytes, object 1 shard 9 truncated by a chunk, object 2
+   shard 5's crc table, object 3 shards 1, 5 and 9, object 4 shard 0);
+   ``scrub_pool`` with repair must name each fault with its kind and
+   repair all 7 bad shards, ``gf_matmul`` launching in the repair
+   decodes, each repaired shard equal to the host engine's encode under
+   its object's crc table; a second scrub must be clean and every read
+   equal the write.  Then ``osd_scrub_interval`` 0.5 on one PG's primary
+   and one more shard rotted: its background scrub must repair it.  Then
+   the cache pool over pool B (``osd tier add``, ``cache-mode
+   writeback`` with hit sets of 0.2 s, count 2 and ``cache_min_flush_age``
+   0, ``set-overlay``, ``target_max_objects`` 4): 16 × 4 MiB written
+   through pool B's name with the tiering agents paused must sit dirty in
+   the cache and not in pool B; the agents, started again, must flush all
+   16 (``bitmatrix_xor`` launching, every pool-B shard equal to the host
+   engine's encode) and evict them; with one pool-B OSD down (a data shard
+   of as many objects as can be, no primary), every read must promote
+   from pool B through a degraded read (``bitmatrix_xor`` decoding) and
+   equal the write.  Last, ``lock``, ``refcount``, ``version`` and
+   ``numops`` calls on the replicated pool must answer what the reference
+   answers (``CLS_CALLS``), a call on pool A ``-EOPNOTSUPP``, and no OSD
+   may have served an op off the card.  It prints the scrub's wall time
+   and GB/s, each repair decode's ms, the flush and promote GB/s (host
+   clock) and each step's launches.  The phase runs under
+   ``asyncio.wait_for`` and stops the mon before the OSDs.
 
 Output: the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on its main path, phase 4 or 7, with ``launches_osd_engine``
 from phase 6, ``launches_churn`` from phase 8,
 ``launches_accel_service`` from phase 9, ``launches_accel_fleet``
 from phase 10, ``launches_observability`` from phase 11 and
-``launches_osd_stores`` from phase 12 and ``launches_osd_cluster`` from
-phase 13 beside it), and last
+``launches_osd_stores`` from phase 12, ``launches_osd_cluster`` from
+phase 13 and ``launches_osd_scrub_tier`` from phase 14 beside it), and
+last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -3270,6 +3300,474 @@ def run_osd_cluster(dev, rng, root: str | None = None) -> dict:
     return launches["phase"]
 
 
+SCRUB_OBJECTS = 32
+SCRUB_OBJECT_SIZE = CLUSTER_OBJECT_SIZE
+SCRUB_CHUNK = CLUSTER_POOLS["a"][1]
+# pool A object: (the shards rotted behind the OSDs' backs, the kind scrub
+# must name).  Object 3 loses three shards: phase 6's three-erasure
+# gf_matmul decode; a single lost data shard takes the XOR program (§4 of
+# PERF.md), a lost parity shard gf_matmul
+SCRUB_FAULTS = {
+    0: ((1,), "crc"),
+    1: ((9,), "size"),
+    2: ((5,), "attr"),
+    3: ((1, 5, 9), "crc"),
+    4: ((0,), "crc"),
+}
+SCRUB_BACKGROUND_OBJECT = 5
+SCRUB_BACKGROUND_SHARD = 10  # a parity shard: its repair is a gf_matmul
+SCRUB_BACKGROUND_INTERVAL_S = 0.5
+SCRUB_BACKGROUND_LIMIT_S = 120.0
+TIER_OBJECTS = 16
+TIER_CACHE_SIZE = 3
+TIER_CACHE_PG_NUM = 4  # pool B's
+TIER_HIT_SET_PERIOD_S = 0.2
+TIER_HIT_SET_COUNT = 2
+TIER_TARGET_MAX_OBJECTS = 4  # below TIER_OBJECTS: the agent evicts
+TIER_LIMIT_S = 300.0
+# (class, method, input, the reference's answer): the answers are those of
+# the reference package's OSD to the same calls in this order on one object
+# (tests/test_torch_cls.py holds them against it)
+CLS_CALLS = (
+    ("lock", "lock", {"name": "L", "entity": "client.a", "cookie": "c1"}, {}),
+    ("lock", "get_info", {"name": "L"},
+     {"type": 1, "tag": "", "lockers": [{"entity": "client.a", "cookie": "c1",
+                                        "description": "", "expires": 0}]}),
+    ("lock", "unlock", {"name": "L", "entity": "client.a", "cookie": "c1"}, {}),
+    ("lock", "list_locks", {}, {"names": []}),
+    ("refcount", "get", {"tag": "t1"}, {"count": 1}),
+    ("refcount", "get", {"tag": "t2"}, {"count": 2}),
+    ("refcount", "put", {"tag": "t1"}, {"count": 1, "last": False}),
+    ("refcount", "read", {}, {"refs": ["t2"]}),
+    ("version", "set", {"ver": 5, "tag": "t1"}, {"objv": {"ver": 5, "tag": "t1"}}),
+    ("version", "inc", {}, {"objv": {"ver": 6, "tag": "t1"}}),
+    ("version", "read", {}, {"objv": {"ver": 6, "tag": "t1"}}),
+    ("numops", "add", {"key": "n", "value": 5}, {"value": "5"}),
+    ("numops", "add", {"key": "n", "value": -2}, {"value": "3"}),
+)
+EOPNOTSUPP = 95
+SCRUB_TIER_PHASE_LIMIT_S = 900.0
+
+
+def scrub_tier_oid(pool: str, i: int) -> str:
+    return f"rbd_data.{pool}14.{i:016x}"
+
+
+def run_osd_scrub_tier(dev, rng, root: str | None = None) -> dict:
+    """Phase 14 (see the module docstring).  ``root`` holds the mon's and
+    the OSDs' stores (a temporary directory when None).  Returns the
+    kernels' launch counts over the phase, counted from one reset."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.ec_util import StripeHashes
+    from ceph_tpu_torch.osd.osdmap import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.osd.tiering import DIRTY_KEY
+    from ceph_tpu_torch.rados import MiniCluster, RadosError
+    from ceph_tpu_torch.store import CollectionId, ObjectId, Transaction
+
+    size = SCRUB_OBJECT_SIZE
+    objs = {
+        "a": [rng.integers(0, 256, size=size, dtype=np.uint8) for _ in range(SCRUB_OBJECTS)],
+        "b": [rng.integers(0, 256, size=size, dtype=np.uint8) for _ in range(TIER_OBJECTS)],
+    }
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scrub_tier_") if root is None else None
+    root = root or tmp
+    launches = {}
+
+    def snapshot():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return gf_cuda.launch_counts()
+
+    def since(what, before):
+        launches[what] = {nm: c - before[nm] for nm, c in snapshot().items()}
+        return launches[what]
+
+    def off_card(osd, what):
+        """No op of this OSD left the card's lane."""
+        t = osd.ec_dispatch.dump()["totals"]
+        pec = osd.perf.get("ec")
+        bad = {key: t[key] for key in ("failovers", "replayed_ops", "fallback_direct",
+                                       "native_direct", "deadline_timeouts") if t[key]}
+        bad.update({key: pec.get(key) for key in (
+            "engine_failovers", "replayed_ops", "launch_deadline_timeouts",
+            "dispatch_native_direct") if pec.get(key)})
+        if bad:
+            raise AssertionError(f"{osd.name} in {what}: {bad}: an op was served off the card")
+        return t["lanes"]["device"]["batches"]
+
+    async def wait_for(what, pred, limit):
+        try:
+            async with asyncio.timeout(limit):
+                while not pred():
+                    await asyncio.sleep(0.1)
+        except TimeoutError:
+            raise AssertionError(f"{what}: not within {limit:g} s") from None
+
+    async def main():
+        cluster = MiniCluster(n_osds=CLUSTER_OSDS, store_kind="blue", store_dir=root,
+                              config_overrides={"osd_max_backfills": CLUSTER_MAX_BACKFILLS},
+                              device=dev)
+        t0 = time.perf_counter()
+        await cluster.start()
+        log(f"  cluster: a mon and {CLUSTER_OSDS} OSDs on BlueStore (sync=flush) up in "
+            f"{time.perf_counter() - t0:.2f} s")
+        device_batches = 0
+        try:
+            cl = await cluster.client(op_timeout=CLUSTER_OP_TIMEOUT_S)
+            pools = {}
+            for name, (profile, stripe_unit) in CLUSTER_POOLS.items():
+                code, status, _ = await cl.command({
+                    "prefix": "osd erasure-code-profile set", "name": f"prof_{name}",
+                    "profile": dict(profile)})
+                if code != 0:
+                    raise AssertionError(f"profile {name}: {status}")
+                await cl.create_pool(name, "erasure", erasure_code_profile=f"prof_{name}",
+                                     pg_num=CLUSTER_PG_NUM[name], stripe_unit=stripe_unit)
+                pools[name] = cl.osdmap.lookup_pool(name)
+            for name, pg_num in (("cache", TIER_CACHE_PG_NUM), ("cls", 1)):
+                await cl.create_pool(name, "replicated", size=TIER_CACHE_SIZE, pg_num=pg_num)
+                pools[name] = cl.osdmap.lookup_pool(name)
+            ios = {name: cl.io_ctx(name) for name in pools}
+            gate = asyncio.Semaphore(CLUSTER_INFLIGHT)
+            codecs = {p: next(iter(cluster.osds.values()))._pool_codec(pools[p]) for p in "ab"}
+            for p, (codec, _sinfo) in codecs.items():
+                if dev.type == "cuda" and codec.device != dev:
+                    raise AssertionError(f"pool {p}'s codec on {codec.device}, expected {dev}")
+
+            async def write(pool, i):
+                async with gate:
+                    await ios[pool].write_full(scrub_tier_oid(pool, i), objs[pool][i].tobytes())
+
+            async def read(pool, i):
+                async with gate:
+                    got = await ios[pool].read(scrub_tier_oid(pool, i))
+                if got != objs[pool][i].tobytes():
+                    raise AssertionError(f"{scrub_tier_oid(pool, i)}: the read differs")
+
+            def placed(pool, i):
+                m = cluster.mon.osdmap
+                return m.object_to_acting(scrub_tier_oid(pool, i), pools[pool].id)
+
+            def shard(pool, i, s):
+                """(store, cid, oid) of shard s of object i; None for a slot
+                CRUSH left empty, which holds no chunk."""
+                pg, acting, _primary = placed(pool, i)
+                if acting[s] == CRUSH_ITEM_NONE:
+                    return None
+                oid = scrub_tier_oid(pool, i)
+                return cluster.stores[acting[s]], CollectionId(f"{pg}s{s}"), ObjectId(oid, s)
+
+            def check_shards(pool, i, what):
+                """Every shard of object i == the host engine's encode of what
+                was written, under a crc table that verifies and that every
+                shard of the object shares."""
+                codec, sinfo = codecs[pool]
+                want = ec_util.encode_fallback(
+                    sinfo, codec, sinfo.pad_to_stripe(objs[pool][i].tobytes()))
+                tables = set()
+                for s in range(codec.get_chunk_count()):
+                    if shard(pool, i, s) is None:
+                        continue
+                    store, cid, soid = shard(pool, i, s)
+                    chunk = np.frombuffer(store.read(cid, soid), dtype=np.uint8)
+                    if not np.array_equal(chunk, want[s]):
+                        raise AssertionError(f"{what}: {soid.name} shard {s} differs from the "
+                                             "host engine's encode")
+                    raw = store.getattr(cid, soid, StripeHashes.XATTR_KEY)
+                    if not StripeHashes.from_dict(json.loads(raw)).verify(s, 0, chunk):
+                        raise AssertionError(f"{what}: {soid.name} shard {s}: its crc table "
+                                             "does not verify")
+                    tables.add(bytes(raw))
+                if len(tables) != 1:
+                    raise AssertionError(f"{what}: {scrub_tier_oid(pool, i)}: the shards' crc "
+                                         "tables differ")
+
+            gf_cuda.reset_launches()
+            start = snapshot()
+
+            # 1. pool A's writes
+            t0 = time.perf_counter()
+            await asyncio.gather(*(write("a", i) for i in range(SCRUB_OBJECTS)))
+            wall = time.perf_counter() - t0
+            log(f"  write: {SCRUB_OBJECTS} x {size / 2**20:g} MiB to pool A (isa k=8 m=3, "
+                f"stripe unit {SCRUB_CHUNK}, {CLUSTER_PG_NUM['a']} PGs): "
+                f"{SCRUB_OBJECTS * size / wall / 1e9:.3f} GB/s ({wall * 1e3:.1f} ms, host clock); "
+                f"launches {since('write', start)}")
+
+            # 2. rot shards behind the OSDs' backs
+            expected = set()
+            for i, (shards, kind) in SCRUB_FAULTS.items():
+                for s in shards:
+                    store, cid, soid = shard("a", i, s)
+                    if kind == "crc":
+                        head = bytes(store.read(cid, soid, 0, 8))
+                        store.apply(Transaction().write(cid, soid, 0,
+                                                        bytes(b ^ 0xFF for b in head)))
+                    elif kind == "size":
+                        store.apply(Transaction().truncate(
+                            cid, soid, store.stat(cid, soid) - SCRUB_CHUNK))
+                    else:
+                        store.apply(Transaction().setattr(cid, soid, StripeHashes.XATTR_KEY,
+                                                          b"{not json"))
+                    expected.add((soid.name, s, kind))
+            log(f"  rotted {len(expected)} shards: " + "; ".join(
+                f"object {i} shard{'s' * (len(sh) > 1)} {', '.join(map(str, sh))} ({kind})"
+                for i, (sh, kind) in SCRUB_FAULTS.items()))
+
+            # 3. scrub with repair, each repair decode timed
+            decode_ms = []
+            plain_decode = ec_util.decode
+
+            def timed_decode(*a, **kw):
+                t1 = time.perf_counter()
+                out = plain_decode(*a, **kw)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                decode_ms.append((time.perf_counter() - t1) * 1e3)
+                return out
+
+            before = snapshot()
+            ec_util.decode = timed_decode
+            try:
+                t0 = time.perf_counter()
+                reports = await cl.scrub_pool("a")
+                scrub_s = time.perf_counter() - t0
+            finally:
+                ec_util.decode = plain_decode
+            since("scrub", before)
+            found = {(e["oid"], e["shard"], e["kind"]) for r in reports for e in r["errors"]}
+            repaired = sum(r["repaired"] for r in reports)
+            if found != expected:
+                raise AssertionError(f"scrub found {sorted(found)}, expected {sorted(expected)}")
+            if repaired != len(expected):
+                raise AssertionError(f"scrub repaired {repaired} of {len(expected)} bad shards")
+            if sum(r["objects"] for r in reports) != SCRUB_OBJECTS:
+                raise AssertionError(f"scrub saw {sum(r['objects'] for r in reports)} objects")
+            if launches["scrub"]["gf_matmul"] == 0:
+                raise AssertionError("no gf_matmul launch in the scrub's repair decodes")
+            log(f"  scrub with repair of pool A's {CLUSTER_PG_NUM['a']} PGs: "
+                f"{SCRUB_OBJECTS * size / scrub_s / 1e9:.3f} GB/s of objects scrubbed "
+                f"({scrub_s * 1e3:.1f} ms, host clock); every fault named with its kind, "
+                f"{repaired} of {len(expected)} bad shards repaired; {len(decode_ms)} repair "
+                f"decodes, ms {[round(ms, 3) for ms in decode_ms]} (host clock, "
+                f"ec_util.decode on the card and the copy back); launches {launches['scrub']}")
+            for i in SCRUB_FAULTS:
+                check_shards("a", i, "repair")
+            t0 = time.perf_counter()
+            again = await cl.scrub_pool("a")
+            if any(r["errors"] for r in again) or sum(r["repaired"] for r in again):
+                raise AssertionError(f"a second scrub found {[r for r in again if r['errors']]}")
+            log(f"  every repaired shard == the host engine's encode, its crc table verifies "
+                f"and equals its object's other shards'; a second scrub clean "
+                f"({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+            await asyncio.gather(*(read("a", i) for i in range(SCRUB_OBJECTS)))
+            log(f"  all {SCRUB_OBJECTS} reads == written")
+
+            # 4. the background scrub on one PG's primary
+            i, s = SCRUB_BACKGROUND_OBJECT, SCRUB_BACKGROUND_SHARD
+            pg, _acting, primary = placed("a", i)
+            osd = cluster.osds[primary]
+            store, cid, soid = shard("a", i, s)
+            head = bytes(store.read(cid, soid, 0, 8))
+            store.apply(Transaction().write(cid, soid, 0, bytes(b ^ 0xFF for b in head)))
+            repaired0 = osd.perf.get("scrub").get("repaired")
+            before = snapshot()
+            t0 = time.perf_counter()
+            osd.config.set("osd_scrub_interval", SCRUB_BACKGROUND_INTERVAL_S)
+            try:
+                await wait_for(f"{osd.name}'s background scrub repairing object {i} shard {s}",
+                               lambda: osd.perf.get("scrub").get("repaired") > repaired0,
+                               SCRUB_BACKGROUND_LIMIT_S)
+            finally:
+                osd.config.set("osd_scrub_interval", 0.0)
+            log(f"  background scrub: osd_scrub_interval {SCRUB_BACKGROUND_INTERVAL_S} on "
+                f"{osd.name} (primary of pg {pg}); object {i} shard {s} rotted and repaired "
+                f"{time.perf_counter() - t0:.2f} s later; launches "
+                f"{since('background scrub', before)}")
+            check_shards("a", i, "background repair")
+            await read("a", i)
+
+            # 5. a writeback cache tier over pool B
+            for cmd in (
+                {"prefix": "osd tier add", "pool": "b", "tierpool": "cache"},
+                {"prefix": "osd tier cache-mode", "pool": "cache", "mode": "writeback",
+                 "hit_set_period": TIER_HIT_SET_PERIOD_S,
+                 "hit_set_count": TIER_HIT_SET_COUNT, "cache_min_flush_age": 0},
+                {"prefix": "osd tier set-overlay", "pool": "b", "tierpool": "cache"},
+                {"prefix": "osd pool set", "pool": "cache", "var": "target_max_objects",
+                 "val": str(TIER_TARGET_MAX_OBJECTS)},
+            ):
+                code, status, _ = await cl.command(cmd)
+                if code != 0:
+                    raise AssertionError(f"{cmd['prefix']}: {status}")
+
+            def tiered(m):
+                c = m.lookup_pool("cache") if m is not None else None
+                return (c is not None and c.cache_mode == "writeback"
+                        and c.target_max_objects == TIER_TARGET_MAX_OBJECTS
+                        and m.lookup_pool("b").read_tier == c.id)
+
+            await wait_for("the tier in every map", lambda: tiered(cl.osdmap) and all(
+                tiered(o.osdmap) for o in cluster.osds.values()), 30.0)
+            # the agents wait while the writes land, so that each can be
+            # seen dirty in the cache before its flush
+            for o in cluster.osds.values():
+                o.tiering.stop()
+
+            def cached(i):
+                """(store, cid, oid) of the cache's primary copy of object i."""
+                oid = scrub_tier_oid("b", i)
+                pg, _acting, primary = cluster.mon.osdmap.object_to_acting(
+                    oid, pools["cache"].id)
+                return cluster.stores[primary], CollectionId(str(pg)), ObjectId(oid)
+
+            def in_base(i):
+                return any(at is not None and at[0].exists(*at[1:]) for at in (
+                    shard("b", i, s) for s in range(codecs["b"][0].get_chunk_count())))
+
+            before = snapshot()
+            t0 = time.perf_counter()
+            await asyncio.gather(*(write("b", i) for i in range(TIER_OBJECTS)))
+            wall = time.perf_counter() - t0
+            for i in range(TIER_OBJECTS):
+                store, cid, oid = cached(i)
+                if not store.exists(cid, oid) or DIRTY_KEY not in store.getattrs(cid, oid):
+                    raise AssertionError(f"{oid.name}: not dirty in the cache after its write")
+                if in_base(i):
+                    raise AssertionError(f"{oid.name}: in pool B before its flush")
+            log(f"  tier: pool cache (replicated, size {TIER_CACHE_SIZE}) over pool B "
+                f"(cauchy_good k=10 m=4), writeback, overlay, hit sets {TIER_HIT_SET_COUNT} x "
+                f"{TIER_HIT_SET_PERIOD_S} s, target_max_objects {TIER_TARGET_MAX_OBJECTS}; "
+                f"{TIER_OBJECTS} x {size / 2**20:g} MiB written through pool B's name: "
+                f"{TIER_OBJECTS * size / wall / 1e9:.3f} GB/s ({wall * 1e3:.1f} ms, host "
+                f"clock), every one dirty in the cache and absent from pool B; launches "
+                f"{since('tier write', before)}")
+
+            def stat(key):
+                return sum(o.tiering.stats[key] for o in cluster.osds.values())
+
+            def dirty(i):
+                store, cid, oid = cached(i)
+                try:
+                    return DIRTY_KEY in store.getattrs(cid, oid)
+                except KeyError:
+                    return False  # evicted: flushed first
+
+            flushes0, evictions0 = stat("flushes"), stat("evictions")
+            before = snapshot()
+            t0 = time.perf_counter()
+            for o in cluster.osds.values():
+                o.tiering.start()
+            await wait_for("the agents' flushes", lambda: stat("flushes") - flushes0
+                           >= TIER_OBJECTS and not any(map(dirty, range(TIER_OBJECTS))),
+                           TIER_LIMIT_S)
+            flush_s = time.perf_counter() - t0
+            since("flush", before)
+            if launches["flush"]["bitmatrix_xor"] == 0:
+                raise AssertionError("no bitmatrix_xor launch in the flushes")
+            for i in range(TIER_OBJECTS):
+                check_shards("b", i, "flush")
+            log(f"  flush: the agents wrote back all {TIER_OBJECTS} in {flush_s:.3f} s "
+                f"({TIER_OBJECTS * size / flush_s / 1e9:.3f} GB/s, host clock, from the agents' "
+                f"start, their 1 s tick included); every pool B shard == the host engine's "
+                f"encode; launches {launches['flush']}")
+
+            def resident(i):
+                pg, acting, _primary = cluster.mon.osdmap.object_to_acting(
+                    scrub_tier_oid("b", i), pools["cache"].id)
+                oid = ObjectId(scrub_tier_oid("b", i))
+                return any(cluster.stores[o].exists(CollectionId(str(pg)), oid)
+                           for o in acting if o != CRUSH_ITEM_NONE and o in cluster.osds)
+
+            t0 = time.perf_counter()
+            await wait_for("the agents' evictions",
+                           lambda: not any(map(resident, range(TIER_OBJECTS))), TIER_LIMIT_S)
+            log(f"  evict: all {TIER_OBJECTS} cold and out of the cache "
+                f"{time.perf_counter() - t0:.3f} s after the flush "
+                f"({stat('evictions') - evictions0} evictions)")
+
+            # 6. one pool B OSD down, every object promoted by a degraded read
+            m = cluster.mon.osdmap
+            k_b = codecs["b"][0].get_data_chunk_count()
+            base_pgs = {}
+            for i in range(TIER_OBJECTS):
+                pg, acting, primary = placed("b", i)
+                base_pgs[str(pg)] = (acting, primary)
+            primaries = {p for _a, p in base_pgs.values()} | {
+                m.pg_to_up_acting_osds(pg)[3] for pg in m.pgs_of_pool(pools["cache"].id)}
+            data_slots = {o: sum(o in acting[:k_b] for acting, _p in base_pgs.values())
+                          for o in cluster.osds if o not in primaries}
+            if not data_slots:
+                raise AssertionError("every OSD is a primary of pool B or the cache")
+            victim = max(data_slots, key=lambda o: (data_slots[o], -o))
+            degraded = sum(victim in placed("b", i)[1][:k_b] for i in range(TIER_OBJECTS))
+            device_batches += off_card(cluster.osds[victim], "the run before its kill")
+            await cluster.kill_osd(victim)
+            await cluster.wait_for_osd_down(victim)
+            promotes0 = stat("promotes")
+            before = snapshot()
+            t0 = time.perf_counter()
+            await asyncio.gather(*(read("b", i) for i in range(TIER_OBJECTS)))
+            wall = time.perf_counter() - t0
+            since("promote", before)
+            if stat("promotes") - promotes0 != TIER_OBJECTS:
+                raise AssertionError(f"{stat('promotes') - promotes0} promotes for "
+                                     f"{TIER_OBJECTS} reads")
+            if degraded and launches["promote"]["bitmatrix_xor"] == 0:
+                raise AssertionError("no bitmatrix_xor decode in the degraded promotes")
+            log(f"  promote: osd.{victim} down (a data shard of {degraded} of the "
+                f"{TIER_OBJECTS} objects); every read promoted from pool B and == written: "
+                f"{TIER_OBJECTS * size / wall / 1e9:.3f} GB/s ({wall * 1e3:.1f} ms, host clock); "
+                f"launches {launches['promote']}")
+
+            # 7. object classes on a replicated pool, and still none on EC
+            io = ios["cls"]
+            await io.write_full("obj", b"x")
+            for kls, method, inp, want in CLS_CALLS:
+                got = await io.exec("obj", kls, method, inp)
+                if got != want:
+                    raise AssertionError(f"{kls}.{method}: {got}, the reference answers {want}")
+            try:
+                await ios["a"].exec(scrub_tier_oid("a", 0), "lock", "lock",
+                                    {"name": "L", "entity": "client.a", "cookie": "c1"})
+                raise AssertionError("a call on pool A was served")
+            except RadosError as e:
+                if e.code != -EOPNOTSUPP:
+                    raise
+            log(f"  object classes: {len(CLS_CALLS)} calls of lock, refcount, version and "
+                f"numops on pool cls == the reference's answers; a call on pool A answers "
+                f"-EOPNOTSUPP")
+
+            # 8. nothing off the card
+            for o in cluster.osds.values():
+                device_batches += off_card(o, "phase 14")
+            launches["phase"] = {nm: c - start[nm] for nm, c in snapshot().items()}
+            log(f"  launches in the phase: {launches['phase']}; {device_batches} device-lane "
+                f"launches over the OSDs' dispatchers, no op off the card")
+            if dev.type == "cuda":
+                log(f"  card: {nvidia_smi('name,power.limit')}")
+        finally:
+            t0 = time.perf_counter()
+            for rank in list(cluster.mons):
+                await cluster.kill_mon(rank)
+            await cluster.stop()
+            log(f"  cluster stopped in {time.perf_counter() - t0:.2f} s")
+
+    try:
+        asyncio.run(asyncio.wait_for(main(), SCRUB_TIER_PHASE_LIMIT_S))
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return launches["phase"]
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "ceph_tpu_torch" / "__init__.py").exists():
@@ -3354,6 +3852,9 @@ def main() -> int:
 
     phase("13. the port's MiniCluster on the card: client EC writes, degraded reads, a backfill")
     cluster_launches = run_osd_cluster(dev, rng)
+
+    phase("14. scrub, repair and a cache tier on the port's MiniCluster")
+    scrub_tier_launches = run_osd_scrub_tier(dev, rng)
     for row in rows:
         row["launches_osd_engine"] = osd_launches[row["name"]]
         row["launches_churn"] = churn_launches[row["name"]]
@@ -3362,6 +3863,7 @@ def main() -> int:
         row["launches_observability"] = obs_launches[row["name"]]
         row["launches_osd_stores"] = store_launches[row["name"]]
         row["launches_osd_cluster"] = cluster_launches[row["name"]]
+        row["launches_osd_scrub_tier"] = scrub_tier_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

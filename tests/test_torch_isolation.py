@@ -19,6 +19,9 @@
   raises ``NotImplementedError`` instead of being ignored, with or
   without a mon or a socket.  The ``osd`` role of ``tools.daemon`` raises
   without CUDA unless given the CPU too, before it makes its store.
+- An external object class file (``cls_<name>.py`` under
+  ``osd_class_dir``, importing ``ceph_tpu_torch.cls``) served by the
+  port's OSD brings in nothing of ``jax`` or ``ceph_tpu``.
 """
 
 import pathlib
@@ -122,7 +125,42 @@ _SLICE_MODULES = {
     "ceph_tpu_torch.osd.recovery", "ceph_tpu_torch.rados",
     "ceph_tpu_torch.rados.client", "ceph_tpu_torch.rados.cluster",
     "ceph_tpu_torch.rados.striper",
+    # scrub and repair, cache tiering and object classes
+    "ceph_tpu_torch.cls", "ceph_tpu_torch.cls.lock", "ceph_tpu_torch.cls.refcount",
+    "ceph_tpu_torch.cls.version", "ceph_tpu_torch.cls.log", "ceph_tpu_torch.cls.numops",
+    "ceph_tpu_torch.cls.rgw_index", "ceph_tpu_torch.cls.rbd_cls",
+    "ceph_tpu_torch.osd.scrub", "ceph_tpu_torch.osd.tiering",
 }
+
+# an external class file served by the port's OSD, with jax and ceph_tpu
+# blocked: nothing of them may load on the way
+_EXTERNAL_CLASS = textwrap.dedent("""
+    import asyncio, sys, tempfile, pathlib
+    sys.meta_path.insert(0, Block())
+    from ceph_tpu_torch.rados import MiniCluster
+
+    CLASS = (
+        "from ceph_tpu_torch.cls import CLS_METHOD_RD, register_class\\n"
+        "register_class('ext').method('hi', CLS_METHOD_RD)(lambda ctx, inp: {'hi': inp['n']})\\n"
+    )
+
+    async def main(d):
+        async with MiniCluster(n_osds=3, device="cpu",
+                               config_overrides={"osd_class_dir": d}) as cluster:
+            cl = await cluster.client()
+            await cl.create_pool("p", "replicated", size=3)
+            io = cl.io_ctx("p")
+            await io.write_full("obj", b"x")
+            return await io.exec("obj", "ext", "hi", {"n": 7})
+
+    with tempfile.TemporaryDirectory() as d:
+        (pathlib.Path(d) / "cls_ext.py").write_text(CLASS)
+        out = asyncio.run(asyncio.wait_for(main(d), 60))
+    assert out == {"hi": 7}, out
+    leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not leaked, leaked
+    print("served", out)
+""")
 
 
 def _needs_no_cuda():
@@ -139,6 +177,16 @@ def test_port_imports_without_jax_or_ceph_tpu():
     names = set(out.stdout.split())
     assert len(names) >= 80  # every module of the package
     assert _SLICE_MODULES <= names, _SLICE_MODULES - names
+
+
+def test_an_external_class_loaded_by_the_port_osd_brings_in_no_ceph_tpu():
+    block = _BLOCKED_IMPORT.split("sys.meta_path.insert")[0]
+    out = subprocess.run(
+        [sys.executable, "-c", block + _EXTERNAL_CLASS], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "served {'hi': 7}" in out.stdout
 
 
 def test_defaults_raise_without_cuda():

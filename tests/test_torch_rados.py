@@ -16,9 +16,8 @@ against the reference's cluster, and the reference's client against the
 port's.
 
 The port's refusals are checked here too: ``osd_ec_mesh`` (ROADMAP
-Queue A item 8), scrub, cache tiering and ``call`` (item 6b) and
-``start_mds`` (item 11c), each raising or answering an error that names
-its item.  A client op's trace id and client reach the port OSD's
+Queue A item 8) and ``start_mds`` (item 11c), each raising an error that
+names its item.  A client op's trace id and client reach the port OSD's
 dispatcher flight record.
 
 Every scenario runs under ``asyncio.wait_for`` (``LIMIT_S``).
@@ -49,7 +48,6 @@ from ceph_tpu_torch.osd.ec_util import StripeHashes as PortStripeHashes
 LIMIT_S = 30.0
 PAYLOAD = bytes(range(256)) * 64  # 16 KiB, non-trivial content
 OI_KEY = "_"
-EOPNOTSUPP = 95
 
 REF = types.SimpleNamespace(
     name="ref", rados=ref_rados, store=ref_store, pg_log=ref_pg_log,
@@ -565,65 +563,6 @@ def test_osd_ec_mesh_is_refused():
     with pytest.raises(NotImplementedError, match="item 8"):
         OSD(0, "127.0.0.1:1", config=Config({"osd_ec_mesh": True}, env=""),
             device="cpu")
-
-
-def test_scrub_is_refused():
-    from ceph_tpu_torch.common import Config
-    from ceph_tpu_torch.osd import OSD
-
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        OSD(0, "127.0.0.1:1", scrub_interval=1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        OSD(0, "127.0.0.1:1", config=Config({"osd_scrub_interval": 5.0}, env=""),
-            device="cpu")
-
-    async def main():
-        async with PORT.rados.MiniCluster(n_osds=3, **PORT.kw) as cluster:
-            cl = await cluster.client(op_timeout=5.0)
-            await cl.create_pool("rep", "replicated", size=3, pg_num=1)
-            with pytest.raises(PORT.rados.RadosError) as ei:
-                await cl.scrub_pool("rep")
-            assert ei.value.code == -EOPNOTSUPP and "item 6b" in str(ei.value)
-            osd = next(iter(cluster.osds.values()))
-            with pytest.raises(NotImplementedError, match="item 6b"):
-                osd.config.set("osd_scrub_interval", 1.0)
-
-    run(main())
-
-
-def test_cache_tier_and_call_ops_are_refused():
-    async def main():
-        async with PORT.rados.MiniCluster(n_osds=3, **PORT.kw) as cluster:
-            cl = await cluster.client(op_timeout=5.0)
-            await cl.create_pool("base", "replicated", size=3)
-            await cl.create_pool("cache", "replicated", size=3)
-            for cmd in ({"prefix": "osd tier add", "pool": "base", "tierpool": "cache"},
-                        {"prefix": "osd tier cache-mode", "pool": "cache",
-                         "mode": "writeback"}):
-                code, status, _ = await cl.command(cmd)
-                assert code == 0, status
-            # every OSD's map knows the cache mode before the op
-            await wait_until(lambda: all(
-                (o.osdmap.lookup_pool("cache") or types.SimpleNamespace(
-                    cache_mode=None)).cache_mode == "writeback"
-                for o in cluster.osds.values()))
-            reply = await cl.operate("cache", "obj", [{"op": "writefull", "data": 0}],
-                                     [b"data"])
-            assert reply.result == -EOPNOTSUPP
-            assert "item 6b" in reply.out[0]["error"]
-            with pytest.raises(PORT.rados.RadosError) as ei:
-                await cl.io_ctx("cache").write_full("obj", b"data")
-            assert ei.value.code == -EOPNOTSUPP
-
-            await cl.create_pool("rep", "replicated", size=3)
-            io = cl.io_ctx("rep")
-            await io.write_full("obj", b"data")
-            with pytest.raises(PORT.rados.RadosError) as ei:
-                await io.exec("obj", "hello", "say_hello", {})
-            assert ei.value.code == -EOPNOTSUPP and "item 6b" in str(ei.value)
-            assert await io.read("obj") == b"data"
-
-    run(main())
 
 
 def test_start_mds_is_refused():
