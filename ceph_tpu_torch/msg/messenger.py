@@ -287,12 +287,19 @@ class _FrameChannel(asyncio.BufferedProtocol):
             await self._wait()
 
     # -- writer surface ----------------------------------------------------
+    def _writable(self) -> bool:
+        # a transport closed or aborted here may not have reported
+        # connection_lost yet; some 3.12 releases then fail writelines
+        # with a TypeError (its write handler is already cleared), which
+        # would kill the writer loop outside its ConnectionError path
+        return not self._conn_lost and not self.transport.is_closing()
+
     def write(self, data) -> None:
-        if not self._conn_lost:
+        if self._writable():
             self.transport.write(data)
 
     def writelines(self, segs) -> None:
-        if not self._conn_lost:
+        if self._writable():
             self.transport.writelines(segs)
 
     async def drain(self) -> None:

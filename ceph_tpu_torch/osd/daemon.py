@@ -107,6 +107,9 @@ ESTALE = 116
 # invariant; the reference requeues the op through peering instead)
 ENOTCONN = 107
 EOPNOTSUPP = 95
+# how long an op naming a pool this OSD's map lacks waits for the
+# newer map its client already holds
+MAP_WAIT_S = 10.0
 
 OI_KEY = "_"  # object-info xattr (reference OI_ATTR)
 
@@ -795,6 +798,7 @@ class OSD(Dispatcher):
         self._pg_stats_cache: dict[str, tuple[tuple, dict]] = {}
         self._hb_last: dict[int, float] = {}
         self._map_event = asyncio.Event()
+        self._booted_again = float("-inf")
         self._stopping = False
         from .recovery import RecoveryManager
         from .scrub import ScrubManager
@@ -1269,8 +1273,25 @@ class OSD(Dispatcher):
         except Exception:
             logger.exception("%s: interval recording failed", self.name)
         self._map_event.set()
+        if (old is not None and old.is_up(self.osd_id)
+                and not m.is_up(self.osd_id) and not self._stopping):
+            self._boot_again(m.epoch)
         self.recovery.kick()  # acting sets may have changed
         self._kick_snap_trim()
+
+    def _boot_again(self, epoch: int) -> None:
+        """A map marks this running OSD down (a peer missed our replies
+        while our loop stalled, or a late report): announce ourselves
+        again, as Ceph's OSD does when "wrongly marked me down"
+        (reference:src/osd/OSD.cc), at most once per heartbeat grace."""
+        now = time.monotonic()
+        if now - self._booted_again < self.heartbeat_grace:
+            return
+        self._booted_again = now
+        logger.warning("%s: map e%d wrongly marks me down; booting again",
+                       self.name, epoch)
+        if self._mon_conn is not None:
+            self._mon_conn.send(messages.MOSDBoot(osd_id=self.osd_id, addr=self.addr))
 
     def _note_intervals(self, old, new) -> None:
         """Close acting-set intervals for locally-hosted PGs on map
@@ -1748,6 +1769,20 @@ class OSD(Dispatcher):
             self.op_tracker.finish(op, completed=replied)
             self._refresh_op_handle()
 
+    async def _pool_at_epoch(self, pool_id: int, epoch: int):
+        """The pool once this OSD's map reaches ``epoch``, or None when
+        the map does not get there within ``MAP_WAIT_S`` (or lacks the
+        pool when it does)."""
+        try:
+            async with asyncio.timeout(MAP_WAIT_S):
+                while self.osdmap.epoch < epoch:
+                    # _handle_map sets the event on every map it takes
+                    self._map_event.clear()
+                    await self._map_event.wait()
+        except TimeoutError:
+            pass
+        return self.osdmap.pools.get(pool_id)
+
     def _quota_rejects(self, msg: messages.MOSDOp) -> bool:
         """True iff this op batch contains a data-GROWING mutation
         (gating only _WRITE_OPS would let setxattr/omap writes bypass
@@ -1780,6 +1815,12 @@ class OSD(Dispatcher):
         if self.osdmap is None:
             return -EAGAIN, [{"error": "no map"}], []
         pool = self.osdmap.pools.get(msg.pool)
+        if pool is None and (msg.epoch or 0) > self.osdmap.epoch:
+            # the client holds a newer map than ours (a pool created
+            # since): wait for it, as Ceph's OSD queues an op until
+            # its map reaches the op's epoch, rather than answer
+            # -ENOENT for a pool that exists
+            pool = await self._pool_at_epoch(msg.pool, msg.epoch)
         if pool is None:
             return -ENOENT, [{"error": f"no pool {msg.pool}"}], []
         # the modded pg (raw seed folded onto pg_num) names collections and
@@ -4452,9 +4493,16 @@ class OSD(Dispatcher):
 
     async def _heartbeat_loop(self) -> None:
         """reference:src/osd/OSD.cc:4104-4245 heartbeat + failure_queue."""
+        prev = time.monotonic()
         try:
             while not self._stopping:
                 await asyncio.sleep(self.heartbeat_interval)
+                woke = time.monotonic()
+                # this loop ran late (the event loop was stalled): the
+                # peers' replies may still sit unread, so this round
+                # pings but judges nobody
+                late = woke - prev > 2 * self.heartbeat_interval
+                prev = woke
                 if not self.hb_map.is_healthy():
                     # a wedged worker: stop pinging so peers report us
                     # (reference:OSD.cc heartbeat() cct->get_heartbeat_map()
@@ -4464,13 +4512,19 @@ class OSD(Dispatcher):
                     continue
                 now = time.monotonic()
                 for osd in range(self.osdmap.max_osd):
-                    if osd == self.osd_id or not self.osdmap.is_up(osd):
+                    if osd == self.osd_id:
+                        continue
+                    if not self.osdmap.is_up(osd):
+                        # its last reply belongs to an incarnation that
+                        # is gone: a rebooted peer gets a full grace,
+                        # not a failure report on its first map
+                        self._hb_last.pop(osd, None)
                         continue
                     addr = self.osdmap.get_addr(osd)
                     if not addr:
                         continue
                     last = self._hb_last.setdefault(osd, now)
-                    if now - last > self.heartbeat_grace:
+                    if now - last > self.heartbeat_grace and not late:
                         logger.info(
                             "%s: peer osd.%d silent for %.1fs -> reporting",
                             self.name, osd, now - last,

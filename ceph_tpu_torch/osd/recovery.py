@@ -658,6 +658,16 @@ class RecoveryManager:
             )
             if not div:
                 continue
+            if erasure:
+                unacked = await self._unacked_entries(pg, shards, acting, past, div)
+                for e in div:
+                    if e not in unacked and e.version > auth_vers.get(e.oid, Eversion()):
+                        # possibly acked: state, which the repair pass
+                        # rolls forward, never a rollback
+                        auth_vers[e.oid] = e.version
+                div = unacked
+                if not div:
+                    continue
             member, store_shard = (
                 strays[key] if key in stray_scans
                 else (shards[key], key if erasure else -1)
@@ -946,6 +956,33 @@ class RecoveryManager:
             for e in log:
                 consider(e["oid"], e["op"], e["version"], capped)
         return state
+
+    async def _unacked_entries(
+        self, pg: PGid, shards: dict[int, int], acting: list[int],
+        past: "peering.PastIntervals", entries: list[PGLogEntry],
+    ) -> list[PGLogEntry]:
+        """The divergent EC entries that are provably never acked
+        (``_proven_unacked`` on fresh reads).  A primary serves writes
+        in a new interval before a clean recovery pass stamps its
+        last_epoch_started, so a member can trail the authoritative les
+        while holding a write that interval ACKED on every present
+        member; the authoritative member, down in that interval, never
+        saw it.  Rolling such an entry back loses acked data; left in
+        place, the repair pass rolls it forward to the members that
+        lack it (the caller merges them into the authoritative
+        versions)."""
+        out = []
+        for e in entries:
+            if not any(iv.first <= e.version.epoch <= iv.last for iv in past.intervals):
+                # no member recorded the entry's interval (a returning
+                # member may scan before the others note it): who was
+                # present then is unknown, so nothing is proven
+                continue
+            async with self.osd.ec_exclusive(pg, e.oid):
+                vers, _errs = await self._fresh_versions(pg, True, shards, e.oid)
+            if self._proven_unacked(pg, tuple(e.version.to_list()), vers, acting, past):
+                out.append(e)
+        return out
 
     async def _rollback_divergent(
         self, pg: PGid, erasure: bool, member: int, store_shard: int,

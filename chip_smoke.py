@@ -240,6 +240,39 @@ Phases, each fatal on any mismatch or exception:
    and GB/s, each repair decode's ms, the flush and promote GB/s (host
    clock) and each step's launches.  The phase runs under
    ``asyncio.wait_for`` and stops the mon before the OSDs.
+15. the storm, and the OSDs in their own processes, in two parts.  (a)
+   phase 13's ``MiniCluster`` of 14 OSDs on BlueStore and pools A and B
+   under the port's storm driver, with the launch counts set to 0 just
+   before its traffic: ``ClientLoad`` of 4 MiB objects (2 writers, 8
+   names each) through ``StormDriver.scenario_single_kill`` on pool A and
+   ``scenario_rolling`` (two victims) on pool B, each kill held back
+   until 20 writes have been acked since the load started or the last
+   victim came back, and each restart until 20 writes issued after the
+   victim was marked down have been acked; each must hold the
+   reference's invariants (no failed client op, every acked write read
+   back byte-identical, every PG scrubbed clean), the single kill's
+   device plan (``ChurnPlanner`` on the card) must equal the live remap,
+   ``crush_straw2``, ``gf_matmul`` and ``bitmatrix_xor`` must each launch
+   and no OSD may serve an op off the card.  (b) the port's
+   ``ProcCluster``: a mon and 14 OSD processes (``python -m
+   ceph_tpu_torch.tools.daemon``, each opening the card itself) on
+   BlueStore, heartbeat 2 s, an admin socket each through
+   ``CEPH_TPU_ARGS``, pool A.  64 × 4 MiB ``write_full`` with 16 in
+   flight under a ``kernel trace`` window on the OSD that leads the most
+   pool-A PGs (its capture must be whole), read back; that OSD
+   ``kill -9``'d 0.2 s into 16 × 4 MiB overwrites, its plan from the
+   client's maps held against the live remap, restarted, every PG
+   scrubbed clean and every object read back (each acked write
+   byte-identical, each unacked one a complete version; a read that
+   fails, healthy or after the restart, fails the phase); ``rados bench
+   a 5 write`` and ``seq`` through the port's ``rados`` CLI; ``ceph osd
+   tree`` and ``osd dump`` through the port's ``ceph`` CLI; then every OSD
+   process through its socket: it names the card (``arch``) and no op
+   left the card (``perf dump``, ``dump_ec_dispatch``), with device-lane
+   batches over the 14.  It prints each step's GB/s and wall time (host
+   clock), the card's memory in use and the traced process's idle share
+   (that process's view only).  Each part runs under
+   ``asyncio.wait_for``.
 
 Output: the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on its main path, phase 4 or 7, with ``launches_osd_engine``
@@ -247,8 +280,10 @@ from phase 6, ``launches_churn`` from phase 8,
 ``launches_accel_service`` from phase 9, ``launches_accel_fleet``
 from phase 10, ``launches_observability`` from phase 11 and
 ``launches_osd_stores`` from phase 12, ``launches_osd_cluster`` from
-phase 13 and ``launches_osd_scrub_tier`` from phase 14 beside it), and
-last
+phase 13, ``launches_osd_scrub_tier`` from phase 14, and from phase 15
+``launches_storm``, part (a)'s launches in this process, and
+``launches_proc_cluster``, the traced OSD process's captured launches,
+beside it), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -3016,6 +3051,51 @@ CLUSTER_RECOVERY_LIMIT_S = 300.0
 CLUSTER_PHASE_LIMIT_S = 900.0
 
 
+async def create_ec_pools(cl, pools: dict, pg_num: dict) -> dict:
+    """Each pool's profile (naming its plugin) and the pool, as phase 13
+    makes them; pool ``a`` takes writes with m shards lost (``min_size``
+    k).  Returns the pools as the client's map has them."""
+    out = {}
+    for name, (profile, stripe_unit) in pools.items():
+        code, status, _ = await cl.command({
+            "prefix": "osd erasure-code-profile set", "name": f"prof_{name}",
+            "profile": dict(profile)})
+        if code != 0:
+            raise AssertionError(f"profile {name}: {status}")
+        await cl.create_pool(name, "erasure", erasure_code_profile=f"prof_{name}",
+                             pg_num=pg_num[name], stripe_unit=stripe_unit)
+        out[name] = cl.osdmap.lookup_pool(name)
+    if "a" in pools:
+        code, status, _ = await cl.command({"prefix": "osd pool set", "pool": "a",
+                                            "var": "min_size", "val": pools["a"][0]["k"]})
+        if code != 0:
+            raise AssertionError(f"min_size: {status}")
+    return out
+
+
+def served_off_card(what: str, totals: dict, ec: dict, card: bool = True) -> int:
+    """No op left the card's lane: no failover, replay, host fallback or
+    deadline in a dispatcher's ``totals`` or an OSD's ``ec`` counters,
+    and with ``card`` no op on the host's native lane either (a CPU
+    codec's own lane).  Returns the device lane's batches."""
+    keys = ("failovers", "replayed_ops", "fallback_direct", "deadline_timeouts")
+    ec_keys = ("engine_failovers", "replayed_ops", "launch_deadline_timeouts")
+    if card:
+        keys += ("native_direct",)
+        ec_keys += ("dispatch_native_direct",)
+    bad = {key: totals[key] for key in keys if totals[key]}
+    bad.update({key: ec[key] for key in ec_keys if ec.get(key)})
+    if bad:
+        raise AssertionError(f"{what}: {bad}: an op was served off the card")
+    return totals["lanes"]["device"]["batches"]
+
+
+def osd_off_card(osd, what: str) -> int:
+    """``served_off_card`` for an OSD of this process."""
+    return served_off_card(f"{osd.name} in {what}", osd.ec_dispatch.dump()["totals"],
+                           osd.perf.dump()["ec"])
+
+
 def cluster_oid(pool: str, i: int) -> str:
     return f"rbd_data.{pool}13.{i:016x}"
 
@@ -3053,19 +3133,6 @@ def run_osd_cluster(dev, rng, root: str | None = None) -> dict:
             torch.cuda.synchronize()
         return gf_cuda.launch_counts()
 
-    def off_card(osd, what):
-        """No op of this OSD left the card's lane."""
-        t = osd.ec_dispatch.dump()["totals"]
-        pec = osd.perf.get("ec")
-        bad = {key: t[key] for key in ("failovers", "replayed_ops", "fallback_direct",
-                                       "native_direct", "deadline_timeouts") if t[key]}
-        bad.update({key: pec.get(key) for key in (
-            "engine_failovers", "replayed_ops", "launch_deadline_timeouts",
-            "dispatch_native_direct") if pec.get(key)})
-        if bad:
-            raise AssertionError(f"{osd.name} in {what}: {bad}: an op was served off the card")
-        return t["lanes"]["device"]["batches"]
-
     async def main():
         cluster = MiniCluster(n_osds=CLUSTER_OSDS, store_kind="blue", store_dir=root,
                               config_overrides={"osd_max_backfills": CLUSTER_MAX_BACKFILLS},
@@ -3077,21 +3144,8 @@ def run_osd_cluster(dev, rng, root: str | None = None) -> dict:
         device_batches = 0
         try:
             cl = await cluster.client(op_timeout=CLUSTER_OP_TIMEOUT_S)
-            pools = {}
-            for name, (profile, stripe_unit) in CLUSTER_POOLS.items():
-                code, status, _ = await cl.command({
-                    "prefix": "osd erasure-code-profile set", "name": f"prof_{name}",
-                    "profile": dict(profile)})
-                if code != 0:
-                    raise AssertionError(f"profile {name}: {status}")
-                await cl.create_pool(name, "erasure", erasure_code_profile=f"prof_{name}",
-                                     pg_num=CLUSTER_PG_NUM[name], stripe_unit=stripe_unit)
-                pools[name] = cl.osdmap.lookup_pool(name)
             # pool A takes writes with three shards lost (min_size = k)
-            code, status, _ = await cl.command({"prefix": "osd pool set", "pool": "a",
-                                                "var": "min_size", "val": "8"})
-            if code != 0:
-                raise AssertionError(f"min_size: {status}")
+            pools = await create_ec_pools(cl, CLUSTER_POOLS, CLUSTER_PG_NUM)
             log(f"  pools: a (isa k=8 m=3, {CLUSTER_PG_NUM['a']} PGs, min_size 8) and b "
                 f"(cauchy_good k=10 m=4, {CLUSTER_PG_NUM['b']} PGs) after "
                 f"{time.perf_counter() - t0:.2f} s")
@@ -3158,7 +3212,7 @@ def run_osd_cluster(dev, rng, root: str | None = None) -> dict:
             for n_down, group in ((1, victims[:1]), (3, victims[1:])):
                 t0 = time.perf_counter()
                 for v in group:
-                    device_batches += off_card(cluster.osds[v], "the run before its kill")
+                    device_batches += osd_off_card(cluster.osds[v], "the run before its kill")
                     await cluster.kill_osd(v)
                     await cluster.wait_for_osd_down(v)
                 log(f"  killed {['osd.%d' % v for v in group]}, marked down in "
@@ -3269,7 +3323,7 @@ def run_osd_cluster(dev, rng, root: str | None = None) -> dict:
 
             # 5. nothing off the card
             for osd in cluster.osds.values():
-                device_batches += off_card(osd, "phase 13")
+                device_batches += osd_off_card(osd, "phase 13")
             launches["phase"] = {nm: c - start[nm] for nm, c in snapshot().items()}
             log(f"  launches in the phase: {launches['phase']}; {device_batches} device-lane "
                 f"launches over the OSDs' dispatchers, no op off the card")
@@ -3388,19 +3442,6 @@ def run_osd_scrub_tier(dev, rng, root: str | None = None) -> dict:
     def since(what, before):
         launches[what] = {nm: c - before[nm] for nm, c in snapshot().items()}
         return launches[what]
-
-    def off_card(osd, what):
-        """No op of this OSD left the card's lane."""
-        t = osd.ec_dispatch.dump()["totals"]
-        pec = osd.perf.get("ec")
-        bad = {key: t[key] for key in ("failovers", "replayed_ops", "fallback_direct",
-                                       "native_direct", "deadline_timeouts") if t[key]}
-        bad.update({key: pec.get(key) for key in (
-            "engine_failovers", "replayed_ops", "launch_deadline_timeouts",
-            "dispatch_native_direct") if pec.get(key)})
-        if bad:
-            raise AssertionError(f"{osd.name} in {what}: {bad}: an op was served off the card")
-        return t["lanes"]["device"]["batches"]
 
     async def wait_for(what, pred, limit):
         try:
@@ -3708,7 +3749,7 @@ def run_osd_scrub_tier(dev, rng, root: str | None = None) -> dict:
                 raise AssertionError("every OSD is a primary of pool B or the cache")
             victim = max(data_slots, key=lambda o: (data_slots[o], -o))
             degraded = sum(victim in placed("b", i)[1][:k_b] for i in range(TIER_OBJECTS))
-            device_batches += off_card(cluster.osds[victim], "the run before its kill")
+            device_batches += osd_off_card(cluster.osds[victim], "the run before its kill")
             await cluster.kill_osd(victim)
             await cluster.wait_for_osd_down(victim)
             promotes0 = stat("promotes")
@@ -3747,7 +3788,7 @@ def run_osd_scrub_tier(dev, rng, root: str | None = None) -> dict:
 
             # 8. nothing off the card
             for o in cluster.osds.values():
-                device_batches += off_card(o, "phase 14")
+                device_batches += osd_off_card(o, "phase 14")
             launches["phase"] = {nm: c - start[nm] for nm, c in snapshot().items()}
             log(f"  launches in the phase: {launches['phase']}; {device_batches} device-lane "
                 f"launches over the OSDs' dispatchers, no op off the card")
@@ -3766,6 +3807,504 @@ def run_osd_scrub_tier(dev, rng, root: str | None = None) -> dict:
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
     return launches["phase"]
+
+
+# -- phase 15: the storm, and the OSDs in their own processes -----------------------
+
+# (a) phase 13's cluster and pools under the storm driver's load: 2 writers
+# of 4 MiB objects, 8 object names each
+STORM_OSDS = CLUSTER_OSDS
+STORM_POOLS = CLUSTER_POOLS
+STORM_PG_NUM = CLUSTER_PG_NUM
+STORM_OBJECT_SIZE = CLUSTER_OBJECT_SIZE
+STORM_WRITERS = 2
+STORM_OBJECTS = 8
+STORM_PAUSE_S = 0.01
+# acked writes in each window of a scenario: before each kill, and
+# issued after the victim is marked down and before its restart; and
+# the longest a window may take to gather them
+STORM_WINDOW_WRITES = 20
+STORM_WINDOW_S = 120.0
+# wait_clean's budget on a loaded host (tests/test_churn_storm.py:256)
+STORM_CLEAN_TIMEOUT_S = 150.0
+# (b) a mon and 14 OSD processes on BlueStore, pool A; the heartbeat of
+# tests/test_multiprocess.py:46-49 (single-core interpreters miss faster
+# pings), and longer waits: each OSD process starts torch and the card
+PROC_OSDS = CLUSTER_OSDS
+PROC_OBJECTS = 64
+PROC_STORM_OBJECTS = 16
+PROC_HEARTBEAT_S = 2.0
+PROC_HEALTHY_S = 240.0
+PROC_UP_S = 120.0
+PROC_KILL_AFTER_S = 0.2
+PROC_BENCH_S = 5
+STORM_PHASE_LIMIT_S = 900.0
+BENCH_LINE = r"^(write|seq): \d+ ops, \d+\.\d MB in \d+\.\d\ds = \d+\.\d\d MB/s, \d+\.\d ops/s$"
+
+
+def card_memory() -> str:
+    """The card's memory in use, all processes together (the CUDA
+    driver's count, through torch; nvidia-smi lists no per-process
+    figure in a container)."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return f"{(total - free) / 2**30:.2f} GiB of {total / 2**30:.2f} GiB in use"
+
+
+class TimedWrites:
+    """An ``IoCtx`` whose ``write_full`` keeps the host-clock start of
+    each write it saw acked; every other call goes through."""
+
+    def __init__(self, io):
+        self.io = io
+        self.acked: list[float] = []
+
+    async def write_full(self, name, data):
+        t0 = time.perf_counter()
+        await self.io.write_full(name, data)
+        self.acked.append(t0)
+
+    def __getattr__(self, name):
+        return getattr(self.io, name)
+
+    def since(self, t: float) -> int:
+        """The acked writes that started at ``t`` or later."""
+        return sum(1 for t0 in self.acked if t0 >= t)
+
+
+def run_storm(dev, rng, root: str | None = None) -> dict:
+    """Phase 15 (a) (see the module docstring).  ``root`` holds the
+    stores (a temporary directory when None).  Returns the kernels'
+    launch counts over the part, counted from one reset."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.rados import ClientLoad, MiniCluster, StormDriver
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_storm_") if root is None else None
+    root = root or tmp
+    launches = {}
+
+    def snapshot():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return gf_cuda.launch_counts()
+
+    async def main():
+        cluster = MiniCluster(n_osds=STORM_OSDS, store_kind="blue", store_dir=root,
+                              config_overrides={"osd_max_backfills": CLUSTER_MAX_BACKFILLS},
+                              device=dev)
+        device_batches = [0]
+        # the scenario in hand: its load's writes, when the last victim
+        # came back up (or the load started), when the victim was marked
+        # down, and its windows as (what, acked writes, seconds)
+        now = {}
+        kill, down = cluster.kill_osd, cluster.wait_for_osd_down
+        restart, up = cluster.restart_osd, cluster.wait_for_osd_up
+
+        async def window(what, since):
+            io = now["io"]
+            deadline = since + STORM_WINDOW_S
+            while io.since(since) < STORM_WINDOW_WRITES:
+                if time.perf_counter() > deadline:
+                    raise AssertionError(
+                        f"{io.since(since)} writes acked in {STORM_WINDOW_S:g} s {what}, "
+                        f"not {STORM_WINDOW_WRITES}; failed ops {now['load'].failed[:2]}")
+                await asyncio.sleep(0.05)
+            now["windows"].append((what, io.since(since), time.perf_counter() - since))
+
+        async def kill_osd(osd_id, crash=False):
+            await window(f"before the kill of osd.{osd_id}", now["up"])
+            # the victim's counters go with it: read them first
+            device_batches[0] += osd_off_card(cluster.osds[osd_id], "the run before its kill")
+            await kill(osd_id, crash=crash)
+
+        async def wait_for_osd_down(osd_id, timeout=10.0):
+            await down(osd_id, timeout)
+            now["down"] = time.perf_counter()
+
+        async def restart_osd(osd_id):
+            await window(f"while osd.{osd_id} was down", now["down"])
+            return await restart(osd_id)
+
+        async def wait_for_osd_up(osd_id, timeout=10.0):
+            await up(osd_id, timeout)
+            now["up"] = time.perf_counter()
+
+        cluster.kill_osd, cluster.wait_for_osd_down = kill_osd, wait_for_osd_down
+        cluster.restart_osd, cluster.wait_for_osd_up = restart_osd, wait_for_osd_up
+        t0 = time.perf_counter()
+        await cluster.start()
+        try:
+            cl = await cluster.client(op_timeout=CLUSTER_OP_TIMEOUT_S)
+            await create_ec_pools(cl, STORM_POOLS, STORM_PG_NUM)
+            log(f"  cluster: a mon and {STORM_OSDS} OSDs on BlueStore with pools a and b up "
+                f"in {time.perf_counter() - t0:.2f} s")
+            gf_cuda.reset_launches()
+            start = snapshot()
+            for pool, scenario, kills in (("a", "single_kill", 1), ("b", "rolling", 2)):
+                io = TimedWrites(cl.io_ctx(pool))
+                load = ClientLoad(io, prefix=f"storm-{pool}",
+                                  objects=STORM_OBJECTS, size=STORM_OBJECT_SIZE,
+                                  pause=STORM_PAUSE_S, seed=SEED)
+                driver = StormDriver(cluster, cl, [pool], clean_timeout=STORM_CLEAN_TIMEOUT_S)
+                if driver.device != dev:
+                    raise AssertionError(f"the storm plans on {driver.device}, not {dev}")
+                since = snapshot()
+                t0 = time.perf_counter()
+                now.update(io=io, load=load, up=t0, windows=[])
+                load.start(writers=STORM_WRITERS)
+                result = await getattr(driver, f"scenario_{scenario}")(load)
+                wall = time.perf_counter() - t0
+                launches[scenario] = {nm: c - since[nm] for nm, c in snapshot().items()}
+                windows = now["windows"]
+                if len(windows) != 2 * kills or result["ops_acked"] < STORM_WINDOW_WRITES * len(windows):
+                    raise AssertionError(
+                        f"scenario_{scenario}: {result['ops_acked']} acked writes over the windows "
+                        f"{windows}, not {STORM_WINDOW_WRITES} in each of {2 * kills}")
+                who = (f"osd.{result['victim']}" if "victim" in result
+                       else ", ".join(f"osd.{v}" for v in result["victims"]))
+                ms = sorted(load.latencies)
+                log(f"  scenario_{scenario} on pool {pool} ({who} killed and restarted): "
+                    f"{result['ops_acked']} acked {STORM_OBJECT_SIZE / 2**20:g} MiB writes "
+                    f"from {STORM_WRITERS} writers over the scenario's {wall:.2f} s (host clock); "
+                    f"client latency over those {len(ms)}: p50 {ms[len(ms) // 2] * 1e3:.3f} ms, "
+                    f"p99 {result['client_p99_ms']} ms, max {ms[-1] * 1e3:.3f} ms; "
+                    f"{result['objects']} objects read back byte-identical, "
+                    f"{result['pgs_scrubbed']} PGs scrubbed clean, no failed op; "
+                    f"launches {launches[scenario]}")
+                for what, n, secs in windows:
+                    log(f"    {what}: {n} writes acked in {secs:.2f} s, "
+                        f"{n * STORM_OBJECT_SIZE / secs / 1e9:.3f} GB/s (host clock)")
+                if scenario == "single_kill":
+                    churn = result["churn"]
+                    if churn["predicted"] != churn["actual"] or not churn["predicted"]:
+                        raise AssertionError(
+                            f"the device plan {sorted(churn['predicted'])} != the live remap "
+                            f"{sorted(churn['actual'])}")
+                    log(f"  the plan on {driver.device}: {len(churn['predicted'])} PGs remapped "
+                        f"== the live remap; {churn['plan']}")
+                else:
+                    log(f"  rolling: {result['kicks']} recovery kicks on the survivors, "
+                        f"{result['coalesced_kicks']} coalesced")
+            for osd in cluster.osds.values():
+                device_batches[0] += osd_off_card(osd, "phase 15 (a)")
+            launches["part"] = {nm: c - start[nm] for nm, c in snapshot().items()}
+            log(f"  launches in the part: {launches['part']}; {device_batches[0]} device-lane "
+                f"launches over the OSDs' dispatchers, no op off the card")
+            for name in gf_cuda.SOURCES:
+                if launches["part"][name] == 0:
+                    raise AssertionError(f"{name} was not launched in phase 15 (a)")
+        finally:
+            # the cluster's own stop kills its OSDs with no window
+            cluster.kill_osd, cluster.wait_for_osd_down = kill, down
+            cluster.restart_osd, cluster.wait_for_osd_up = restart, up
+            t0 = time.perf_counter()
+            for rank in list(cluster.mons):
+                await cluster.kill_mon(rank)
+            await cluster.stop()
+            log(f"  cluster stopped in {time.perf_counter() - t0:.2f} s")
+
+    try:
+        asyncio.run(asyncio.wait_for(main(), STORM_PHASE_LIMIT_S))
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return launches["part"]
+
+
+def log_daemon_trouble(pc) -> None:
+    """On a failure of phase 15 (b): the tail of the log of each daemon
+    process that has exited or logged an error or a markdown."""
+    marks = ("Traceback", "ERROR", "suicide", "marked down", "wrongly", "-> reporting")
+    for path in sorted(Path(pc.log_dir).glob("*.log")):
+        name = path.stem
+        role, _, n = name.partition(".")
+        procs = pc.osd_procs if role == "osd" else pc.mon_procs
+        proc = procs.get(int(n)) if n.isdigit() else None
+        text = path.read_text(errors="replace")
+        if proc is None or proc.poll() is not None or any(m in text for m in marks):
+            state = ("gone" if proc is None else "running" if proc.poll() is None
+                     else f"exited {proc.poll()}")
+            log(f"  --- {name} ({state}), the end of its log:\n{text[-3000:]}")
+
+
+def check_osd_window(result: dict) -> dict:
+    """A trace window of one OSD process, over its admin socket: whole
+    (every launch that process counted in it captured, no tap interval
+    without a device event) and with ``gf_matmul`` in it.  Returns the
+    captured launches."""
+    if "error" in result or "unavailable" in result:
+        raise AssertionError(f"the trace window failed: {result}")
+    capture = result["capture"]
+    kernels = capture["kernels"]
+    if capture["short"] or capture["intervals_without_device_events"] or any(
+            k["captured"] != k["launched"] for k in kernels.values()):
+        raise AssertionError(f"the trace window's capture is short: {capture}")
+    if kernels["gf_matmul"]["launched"] == 0:
+        raise AssertionError(f"no gf_matmul in the traced OSD's window: {capture}")
+    return {name: k["captured"] for name, k in kernels.items()}
+
+
+def run_proc_cluster(dev, rng, root: str | None = None) -> dict:
+    """Phase 15 (b) (see the module docstring).  ``root`` holds the
+    stores, the daemons' logs and their admin sockets (a temporary
+    directory when None).  On the CPU the OSD processes run ``--device
+    cpu`` and the checks that need the card are left out.  Returns the
+    traced OSD's captured launches (zeros on the CPU)."""
+    import asyncio
+    import contextlib
+    import io
+    import os
+    import re
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    import torch
+
+    from ceph_tpu_torch.common import admin_command
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.rados import ProcCluster, StormDriver
+    from ceph_tpu_torch.tools import ceph_cli, rados_cli
+
+    card = dev.type == "cuda"
+    size = STORM_OBJECT_SIZE
+    objs = [rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
+            for _ in range(PROC_OBJECTS)]
+    storm = [rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
+             for _ in range(PROC_STORM_OBJECTS)]
+    names = [f"rbd_data.a15.{i:016x}" for i in range(PROC_OBJECTS)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_proc_") if root is None else None
+    root = root or tmp
+    sockdir = os.path.join(root, "asok")
+    os.makedirs(sockdir, exist_ok=True)
+    captured = {name: 0 for name in gf_cuda.SOURCES}
+
+    async def asok(name, prefix, **kw):
+        return await asyncio.wait_for(
+            admin_command(os.path.join(sockdir, f"{name}.asok"), prefix, **kw), 60)
+
+    async def sockets_up(osd_ids):
+        """An OSD opens its admin socket last, after it is up in the map."""
+        async with asyncio.timeout(PROC_UP_S):
+            while not all(os.path.exists(os.path.join(sockdir, f"osd.{i}.asok"))
+                          for i in osd_ids):
+                await asyncio.sleep(0.2)
+
+    def cli(fn, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = fn(argv)
+        if rc != 0:
+            raise AssertionError(f"{argv} exited {rc}: {out.getvalue()}")
+        return out.getvalue()
+
+    async def socket_checks(osd_id, what):
+        """The process names its device, and no op left the card."""
+        arch, perf, disp = await asyncio.gather(
+            asok(f"osd.{osd_id}", "arch"), asok(f"osd.{osd_id}", "perf dump"),
+            asok(f"osd.{osd_id}", "dump_ec_dispatch"))
+        if card and (arch["platform"] != "gpu"
+                     or arch["device_kind"] != torch.cuda.get_device_name(dev)):
+            raise AssertionError(f"osd.{osd_id}'s arch names {arch['platform']} "
+                                 f"{arch['device_kind']}, not the card")
+        return served_off_card(f"osd.{osd_id} in {what}", disp["totals"], perf["ec"], card)
+
+    async def main():
+        pc = ProcCluster(os.path.join(root, "c"), n_osds=PROC_OSDS, store_kind="blue",
+                         heartbeat_interval=PROC_HEARTBEAT_S, log_dir=os.path.join(root, "logs"),
+                         osd_config={"osd_max_backfills": CLUSTER_MAX_BACKFILLS},
+                         device=None if card else "cpu")
+        if card:
+            log(f"  before the processes: {card_memory()}")
+        t0 = time.perf_counter()
+        try:
+            await pc.start(timeout=PROC_HEALTHY_S)
+            await sockets_up(range(PROC_OSDS))
+            log(f"  cluster: a mon and {PROC_OSDS} OSD processes (`python -m "
+                f"ceph_tpu_torch.tools.daemon osd ... --device {pc.device}`) on BlueStore, "
+                f"heartbeat {PROC_HEARTBEAT_S:g} s, all up with their admin sockets in "
+                f"{time.perf_counter() - t0:.2f} s")
+            cl = await pc.client(op_timeout=CLUSTER_OP_TIMEOUT_S)
+            pool = (await create_ec_pools(cl, {"a": STORM_POOLS["a"]}, STORM_PG_NUM))["a"]
+            io_a = cl.io_ctx("a")
+            m = cl.osdmap
+            led = Counter(m.pg_to_up_acting_osds(pg)[3] for pg in m.pgs_of_pool(pool.id))
+            traced = max(led, key=lambda o: (led[o], -o))
+            gate = asyncio.Semaphore(CLUSTER_INFLIGHT)
+
+            async def write(i, data):
+                async with gate:
+                    await io_a.write_full(names[i], data)
+
+            async def read(i):
+                # no retry: the client retargets and resends by itself,
+                # so an error that reaches here is a failed read
+                async with gate:
+                    return await io_a.read(names[i])
+
+            def rate(n, wall):
+                return f"{n * size / wall / 1e9:.3f} GB/s ({wall * 1e3:.1f} ms, host clock)"
+
+            # 1. the writes, under a trace window on the OSD that leads
+            # the most pool-A PGs
+            if card:
+                opened = await asok(f"osd.{traced}", "kernel trace start",
+                                    duration=TRACE_ASK_S, label="phase 15")
+                if not opened.get("success"):
+                    raise AssertionError(f"kernel trace start on osd.{traced}: {opened}")
+            t0 = time.perf_counter()
+            await asyncio.gather(*(write(i, objs[i]) for i in range(PROC_OBJECTS)))
+            wall = time.perf_counter() - t0
+            profile, stripe_unit = STORM_POOLS["a"]
+            log(f"  write: {PROC_OBJECTS} x {size / 2**20:g} MiB to pool A ({profile}, stripe "
+                f"unit {stripe_unit}, {STORM_PG_NUM['a']} PGs) through RadosClient, "
+                f"{CLUSTER_INFLIGHT} in flight, each OSD its own process: {rate(PROC_OBJECTS, wall)}")
+            if card:
+                window = await asok(f"osd.{traced}", "kernel trace stop")
+                captured.update(check_osd_window(window))
+                log(f"  kernel trace window on osd.{traced} (leads {led[traced]} of "
+                    f"{STORM_PG_NUM['a']} pool-A PGs) around the write: wall {window['wall_s']} s, "
+                    f"capture {window['capture']}; buckets {window['buckets']}; occupancy "
+                    f"{window.get('occupancy')}, so that process's card idle share >= "
+                    f"{1 - window.get('occupancy', 0):.4f} (its own view only: CUPTI in one "
+                    f"process does not see the other {PROC_OSDS - 1} processes' kernels)")
+                log(f"  after the write: {card_memory()}")
+
+            # 2. read back, healthy
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*(read(i) for i in range(PROC_OBJECTS)))
+            wall = time.perf_counter() - t0
+            if any(g != objs[i] for i, g in enumerate(got)):
+                raise AssertionError("a healthy read differs from its write")
+            del got
+            log(f"  healthy read: {PROC_OBJECTS} x {size / 2**20:g} MiB, every read == written: "
+                f"{rate(PROC_OBJECTS, wall)}")
+
+            # 3. kill -9 of that OSD with a storm of overwrites in flight
+            victim = traced
+            batches = await socket_checks(victim, "the run before its kill")
+            driver = StormDriver(pc, cl, ["a"], clean_timeout=STORM_CLEAN_TIMEOUT_S, device=dev)
+            pre = driver.snapshot_map()
+            acked = dict(enumerate(objs))
+            versions = {i: [objs[i]] for i in range(PROC_OBJECTS)}
+
+            async def storm_put(j):
+                versions[j].append(storm[j])
+                await write(j, storm[j])
+                acked[j] = storm[j]
+
+            t0 = time.perf_counter()
+            writers = [asyncio.ensure_future(storm_put(j)) for j in range(PROC_STORM_OBJECTS)]
+            await asyncio.sleep(PROC_KILL_AFTER_S)
+            pc.kill9_osd(victim)
+            # a killed daemon leaves its socket file behind: the restarted
+            # one binds a new one at the same path
+            os.unlink(os.path.join(sockdir, f"osd.{victim}.asok"))
+            await pc.wait_osd_state(cl, victim, up=False, timeout=PROC_UP_S)
+            down_s = time.perf_counter() - t0 - PROC_KILL_AFTER_S
+            results = await asyncio.gather(*writers, return_exceptions=True)
+            wall = time.perf_counter() - t0
+            failed = [j for j, r in enumerate(results) if isinstance(r, BaseException)]
+            churn = driver.plan_between(pre, driver.snapshot_map())
+            if churn["predicted"] != churn["actual"] or not churn["predicted"]:
+                raise AssertionError(f"the device plan {sorted(churn['predicted'])} != the "
+                                     f"live remap {sorted(churn['actual'])}")
+            log(f"  kill -9 of osd.{victim} {PROC_KILL_AFTER_S:g} s into {PROC_STORM_OBJECTS} x "
+                f"{size / 2**20:g} MiB overwrites: marked down in {down_s:.2f} s; "
+                f"{PROC_STORM_OBJECTS - len(failed)} acked, {len(failed)} failed "
+                f"({[repr(results[j])[:80] for j in failed[:2]]}); "
+                f"{rate(PROC_STORM_OBJECTS - len(failed), wall)} of acked writes; the plan on "
+                f"{driver.device} from the client's maps: {len(churn['predicted'])} PGs "
+                f"remapped == the live remap")
+
+            # 4. restart, every PG clean, every object read back
+            t0 = time.perf_counter()
+            await pc.restart_osd(victim)
+            await pc.wait_osd_state(cl, victim, up=True, timeout=PROC_UP_S)
+            up_s = time.perf_counter() - t0
+            await sockets_up([victim])
+            reports = await driver.wait_clean()
+            clean_s = time.perf_counter() - t0 - up_s
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*(read(i) for i in range(PROC_OBJECTS)))
+            wall = time.perf_counter() - t0
+            for i, g in enumerate(got):
+                if i in failed:
+                    if g not in versions[i]:
+                        raise AssertionError(f"{names[i]}: torn after the kill ({len(g)} bytes)")
+                elif g != acked[i]:
+                    raise AssertionError(f"{names[i]}: an acked write was lost")
+            del got
+            log(f"  restart: osd.{victim} up in {up_s:.2f} s, {len(reports)} PGs scrubbed clean "
+                f"{clean_s:.2f} s later; read of all {PROC_OBJECTS}: every acked write "
+                f"byte-identical, every unacked one a complete version: {rate(PROC_OBJECTS, wall)}")
+
+            # 5. rados bench, write then seq
+            loop = asyncio.get_running_loop()
+            mon = ",".join(pc.monmap)
+            for mode in ("write", "seq"):
+                out = await loop.run_in_executor(None, cli, rados_cli.main, [
+                    "-m", mon, "bench", "a", str(PROC_BENCH_S), mode])
+                line = out.strip()
+                if not re.match(BENCH_LINE, line):
+                    raise AssertionError(f"rados bench {mode} printed {out!r}")
+                log(f"  rados -m MON bench a {PROC_BENCH_S} {mode}: {line}")
+
+            # 6. the ceph CLI against the cluster
+            tree = await loop.run_in_executor(None, cli, ceph_cli.main, ["-m", mon, "osd", "tree"])
+            rows = [ln for ln in tree.splitlines() if re.search(r"\bosd\.\d+\b", ln)]
+            if len(rows) != PROC_OSDS or not all(" up " in ln for ln in rows):
+                raise AssertionError(f"ceph osd tree:\n{tree}")
+            dump = json.loads(await loop.run_in_executor(None, cli, ceph_cli.main,
+                                                         ["-m", mon, "osd", "dump"]))
+            if "a" not in {p["name"] for p in dump["pools"].values()}:
+                raise AssertionError(f"ceph osd dump has no pool a: {dump['pools']}")
+            log(f"  ceph osd tree: {len(rows)} OSDs up; ceph osd dump: epoch {dump['epoch']}, "
+                f"pools {sorted(p['name'] for p in dump['pools'].values())}")
+
+            # 7. every OSD process through its admin socket
+            batches += sum(await asyncio.gather(*(
+                socket_checks(i, "phase 15 (b)") for i in range(PROC_OSDS))))
+            if card and batches == 0:
+                raise AssertionError("no device-lane launch over the OSD processes")
+            log(f"  admin sockets: {PROC_OSDS} OSD processes "
+                + (f"each on {torch.cuda.get_device_name(dev)}, " if card else "")
+                + f"no op off the card, {batches} device-lane launches over their dispatchers"
+                + (" (a CUDA codec's batches take the kernel or raise: no failover, replay "
+                   "or native-lane op)" if card else " (the CPU codecs' native lane)"))
+            log(f"  launches_proc_cluster: osd.{victim}'s captured launches in its trace "
+                f"window {captured} (this process's counts cannot see the OSD processes)")
+            if card:
+                log(f"  card: {nvidia_smi('name,power.limit')}")
+        except BaseException:
+            log_daemon_trouble(pc)
+            raise
+        finally:
+            t0 = time.perf_counter()
+            await pc.stop()
+            log(f"  cluster stopped in {time.perf_counter() - t0:.2f} s")
+
+    saved = os.environ.get("CEPH_TPU_ARGS")
+    # every daemon process serves an admin socket: the children take
+    # their options from the environment they inherit
+    os.environ["CEPH_TPU_ARGS"] = f"--admin_socket {sockdir}/{{name}}.asok"
+    try:
+        asyncio.run(asyncio.wait_for(main(), STORM_PHASE_LIMIT_S))
+    finally:
+        if saved is None:
+            os.environ.pop("CEPH_TPU_ARGS", None)
+        else:
+            os.environ["CEPH_TPU_ARGS"] = saved
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return captured
 
 
 def main() -> int:
@@ -3855,6 +4394,10 @@ def main() -> int:
 
     phase("14. scrub, repair and a cache tier on the port's MiniCluster")
     scrub_tier_launches = run_osd_scrub_tier(dev, rng)
+
+    phase("15. the storm, and the OSDs in their own processes on the card")
+    storm_launches = run_storm(dev, rng)
+    proc_launches = run_proc_cluster(dev, rng)
     for row in rows:
         row["launches_osd_engine"] = osd_launches[row["name"]]
         row["launches_churn"] = churn_launches[row["name"]]
@@ -3864,6 +4407,8 @@ def main() -> int:
         row["launches_osd_stores"] = store_launches[row["name"]]
         row["launches_osd_cluster"] = cluster_launches[row["name"]]
         row["launches_osd_scrub_tier"] = scrub_tier_launches[row["name"]]
+        row["launches_storm"] = storm_launches[row["name"]]
+        row["launches_proc_cluster"] = proc_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

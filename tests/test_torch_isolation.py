@@ -22,6 +22,11 @@
 - An external object class file (``cls_<name>.py`` under
   ``osd_class_dir``, importing ``ceph_tpu_torch.cls``) served by the
   port's OSD brings in nothing of ``jax`` or ``ceph_tpu``.
+- The daemon processes a ``ProcCluster`` spawns (the mon and the OSDs)
+  import nothing of ``jax`` or ``ceph_tpu``: a ``sitecustomize`` on
+  their path blocks and records any such import.  ``ProcCluster()`` and
+  ``vstart`` (in process and ``--multiprocess``) raise without CUDA
+  unless given the CPU.
 """
 
 import pathlib
@@ -130,6 +135,11 @@ _SLICE_MODULES = {
     "ceph_tpu_torch.cls.version", "ceph_tpu_torch.cls.log", "ceph_tpu_torch.cls.numops",
     "ceph_tpu_torch.cls.rgw_index", "ceph_tpu_torch.cls.rbd_cls",
     "ceph_tpu_torch.osd.scrub", "ceph_tpu_torch.osd.tiering",
+    # the process cluster, the storm driver and the client tools
+    "ceph_tpu_torch.rados.proc_cluster", "ceph_tpu_torch.rados.storm",
+    "ceph_tpu_torch.rados.object_cacher", "ceph_tpu_torch.tools.rados_cli",
+    "ceph_tpu_torch.tools.ceph_cli", "ceph_tpu_torch.tools.vstart",
+    "ceph_tpu_torch.tools.objectstore_tool", "ceph_tpu_torch.tools.monstore_tool",
 }
 
 # an external class file served by the port's OSD, with jax and ceph_tpu
@@ -407,3 +417,78 @@ def test_dispatcher_accepts_a_remote_and_still_refuses_a_mesh():
     assert ECDispatcher(remote=client).dump()["remote"]["mode"] == "require"
     with pytest.raises(ValueError, match="item 8"):
         ECDispatcher(mesh_engine=object())
+
+
+# a sitecustomize for a ProcCluster's children: blocks jax, jaxlib and
+# ceph_tpu, and records its own loading and any blocked import
+_CHILD_PROBE = textwrap.dedent("""
+    import os, sys
+
+    BLOCKED = ("jax", "jaxlib", "ceph_tpu")
+    LOG = os.environ["PORT_PROBE_LOG"]
+
+    def _note(line):
+        with open(LOG, "a") as f:
+            f.write(line + "\\n")
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                _note(f"blocked {name} in {os.getpid()}")
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    _note(f"loaded {os.getpid()}")
+""")
+
+
+def test_proc_cluster_children_import_no_jax_or_ceph_tpu(tmp_path, monkeypatch):
+    import asyncio
+    import os
+
+    from ceph_tpu_torch.rados import ProcCluster
+
+    probe = tmp_path / "probe"
+    probe.mkdir()
+    (probe / "sitecustomize.py").write_text(_CHILD_PROBE)
+    log = tmp_path / "probe.log"
+    monkeypatch.setenv("PORT_PROBE_LOG", str(log))
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        p for p in (str(probe), os.environ.get("PYTHONPATH", "")) if p))
+
+    async def main():
+        pc = ProcCluster(str(tmp_path / "c"), n_osds=2, log_dir=str(tmp_path / "logs"),
+                         device="cpu")
+        try:
+            async with asyncio.timeout(180):
+                await pc.start(timeout=120)
+                cl = await pc.client()
+                await cl.create_pool("p", "replicated", size=2, pg_num=1)
+                io = cl.io_ctx("p")
+                await io.write_full("o", b"served by the port's daemons")
+                assert await io.read("o") == b"served by the port's daemons"
+                for proc in [*pc.osd_procs.values(), *pc.mon_procs.values()]:
+                    assert proc.args[1:3] == ["-m", "ceph_tpu_torch.tools.daemon"]
+                return {p.pid for p in [*pc.osd_procs.values(), *pc.mon_procs.values()]}
+        finally:
+            await pc.stop()
+
+    pids = asyncio.run(main())
+    lines = log.read_text().splitlines()
+    assert not [ln for ln in lines if ln.startswith("blocked")], lines
+    assert pids <= {int(ln.split()[1]) for ln in lines if ln.startswith("loaded")}, lines
+
+
+def test_proc_cluster_and_vstart_raise_without_cuda(tmp_path):
+    _needs_no_cuda()
+    from ceph_tpu_torch.rados import ProcCluster
+    from ceph_tpu_torch.tools import vstart
+
+    with pytest.raises(DeviceUnavailableError):
+        ProcCluster(str(tmp_path / "c"))
+    with pytest.raises(DeviceUnavailableError):
+        vstart.main(["--osds", "1"])
+    with pytest.raises(DeviceUnavailableError):
+        vstart.main(["--multiprocess", "--osds", "1", "--store-dir", str(tmp_path / "s")])
+    assert not (tmp_path / "c").exists() and not (tmp_path / "s").exists()
