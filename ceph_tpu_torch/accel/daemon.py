@@ -6,9 +6,8 @@ on CUDA (and raises ``DeviceUnavailableError`` without it);
 ``device="cpu"`` is for tests.  Every codec it builds comes from this
 package's registry on that device, so an ISA / Reed-Solomon batch runs
 ``gf_matmul`` and a bit-matrix batch runs ``bitmatrix_xor`` on the card.
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the ``osd_ec_mesh`` option (the mesh lane, ROADMAP Queue A
-item 8).
+With ``osd_ec_mesh`` on, its dispatcher gains the mesh lane, as the
+OSD's does (``parallel.engine.get_mesh_engine``).
 
 The ``admin_socket`` option serves the reference's commands
 (``dump_ec_dispatch``, ``dump_launch_history``, ``dump_engine_health``,
@@ -92,12 +91,6 @@ EIO = 5
 # long after its last request
 _CLIENT_FRESH_S = 30.0
 
-_NOT_PORTED = {
-    "osd_ec_mesh": "the mesh lane waits for ROADMAP Queue A item 8 "
-                   "(multi-device EC)",
-}
-
-
 class AccelDaemon(Dispatcher):
     """One shared accelerator process (see module doc).
 
@@ -116,9 +109,6 @@ class AccelDaemon(Dispatcher):
 
         self.config = config or Config()
         cfg = self.config
-        if cfg.osd_ec_mesh:
-            raise NotImplementedError(
-                f"osd_ec_mesh is not supported: {_NOT_PORTED['osd_ec_mesh']}")
         self.device = resolve(device)
         _install_memlog()
         self.name = name
@@ -167,8 +157,14 @@ class AccelDaemon(Dispatcher):
             slots=cfg.osd_op_queue_slots,
             cut_off=cfg.osd_op_queue_cut_off,
         )
-        # -- the engine room: breaker and dispatcher — the OSD's
-        # discipline, verbatim
+        # -- the engine room: mesh lane (optional), breaker, dispatcher
+        # — the OSD's discipline, verbatim
+        self.ec_mesh = None
+        if cfg.osd_ec_mesh:
+            from ..parallel.engine import get_mesh_engine
+
+            self.ec_mesh = get_mesh_engine(cfg.osd_ec_mesh_devices,
+                                           device=self.device)
         from ..osd.ec_dispatch import ECDispatcher
         from ..osd.ec_failover import EngineSupervisor
 
@@ -188,6 +184,7 @@ class AccelDaemon(Dispatcher):
             scheduler=self.scheduler,
             supervisor=self.supervisor,
             launch_deadline=cfg.osd_ec_launch_deadline,
+            mesh_engine=self.ec_mesh,
             launch_history=cfg.osd_ec_launch_history,
         )
         self.dispatch.inject_engine_failure = cfg.ec_inject_engine_failure

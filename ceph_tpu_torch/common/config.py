@@ -251,18 +251,18 @@ OPTIONS: dict[str, Option] = _opts(
     # erasure code
     Option("osd_ec_mesh", bool, False,
            "route EC encode/reconstruct through the device-mesh engine "
-           "(k+m shard rows on mesh rows, ICI all-gather reconstruct; "
-           "the messenger keeps carrying control traffic) — "
+           "(stripes split over the mesh's lanes, survivor rows "
+           "gathered onto the rebuilding lane; the messenger keeps "
+           "carrying control traffic) — "
            "the multi-device engine.  With osd_ec_dispatch on the "
            "mesh is a dispatcher LANE: coalescing, QoS pacing, the "
            "launch deadline, and engine failover all govern mesh "
            "traffic; batch keys carry the mesh slice and stripe "
            "bucketing aligns to mesh_size x bucket"),
     Option("osd_ec_mesh_devices", int, 0,
-           "devices in the EC mesh slice (0 = every device the "
-           "process sees); a nonzero value pins the mesh to the first N "
-           "devices — bench.py's mesh phase sweeps this dimension for "
-           "per-chip scaling efficiency"),
+           "devices in the EC mesh slice (0 = every card the process "
+           "sees, or 8 lanes for a CPU daemon); a nonzero value pins "
+           "the mesh to the first N devices"),
     Option("osd_ec_dispatch", bool, True,
            "coalesce concurrent EC encode/decode requests into one "
            "padded device launch off the event loop "

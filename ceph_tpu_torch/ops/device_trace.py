@@ -27,7 +27,12 @@ rules read Kineto's chrome-trace shapes:
 
 **Buckets.**  ``cat: "kernel"`` is ``fused_op``, except NCCL kernels
 (``ncclDevKernel_*`` / ``ncclKernel_*``), which are ``collective``;
-``gpu_memcpy`` and ``gpu_memset`` are ``dma``.  Everything else —
+``gpu_memcpy`` and ``gpu_memset`` are ``dma``, except the mesh's gather
+copies: a device-to-device or peer copy (``Memcpy DtoD`` / ``Memcpy
+PtoP``) whose launch call lies, by correlation, in a ``mesh_gather`` or
+``mesh_reconstruct`` tap interval is ``collective`` (the reference's
+all-gather over ICI).  Every other copy, host<->device included, stays
+``dma``.  Everything else —
 ``cuda_runtime`` / ``cuda_driver`` launch calls, ``cpu_op``,
 ``python_function``, ``user_annotation``, ``gpu_user_annotation``,
 flow events (``ph`` other than ``"X"``, ``ac2g``) — is host-side or
@@ -110,6 +115,10 @@ _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 # NCCL collective kernels (ncclDevKernel_AllGather_RING_LL,
 # ncclKernel_AllReduce_...): cross-device traffic, not compute
 _COLLECTIVE_MARKS = ("nccldevkernel", "ncclkernel")
+# the mesh engine's gather (parallel/distributed.gather_rebuild): its
+# copies between lanes, tied by correlation to these engines' calls
+_GATHER_ENGINES = ("mesh_gather", "mesh_reconstruct")
+_LANE_COPY_MARKS = ("DtoD", "PtoP")
 
 # the record_function marker that anchors a window's timeline
 ANCHOR_NAME = "ceph_tpu_torch::ktrace_anchor"
@@ -232,7 +241,8 @@ def summarize_events(
     (``pc = anchor_offset + ts/1e6``) — None disables attribution and
     everything lands in ``unattributed``.  A device event is placed by
     the launch event its ``args.correlation`` names, else by its own
-    time (module docstring)."""
+    time (module docstring); a lane-to-lane copy issued by the mesh's
+    gather is ``collective``."""
     threads = threads or {}
     events = list(events)
     ivs = sorted(intervals)
@@ -268,10 +278,6 @@ def summarize_events(
         name = ev.get("name", "")
         n_op_events += 1
         dur_s = float(ev.get("dur", 0.0)) / 1e6
-        buckets[bucket] += dur_s
-        o = ops.setdefault((name, bucket), [0, 0.0])
-        o[0] += 1
-        o[1] += dur_s
         owner = None
         if anchor_offset is not None and ivs:
             launch = launches.get((ev.get("args") or {}).get("correlation"))
@@ -280,9 +286,17 @@ def summarize_events(
                 # it a microsecond
                 t0 = anchor_offset + launch[0] / 1e6
                 owner = _attr(t0, t0 + max(launch[1], 1.0) / 1e6)
+                if (bucket == "dma" and owner is not None
+                        and owner[0] in _GATHER_ENGINES
+                        and any(m in name for m in _LANE_COPY_MARKS)):
+                    bucket = "collective"
             else:
                 t0 = anchor_offset + float(ev["ts"]) / 1e6
                 owner = _attr(t0, t0 + dur_s)
+        buckets[bucket] += dur_s
+        o = ops.setdefault((name, bucket), [0, 0.0])
+        o[0] += 1
+        o[1] += dur_s
         if owner is None:
             unattributed[bucket] += dur_s
             continue

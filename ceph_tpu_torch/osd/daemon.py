@@ -45,9 +45,11 @@ run ``gf_matmul`` (``bitmatrix_xor``) straight on the pool's codec, and
 a device fault there answers the ``MOSDScrub`` with the error; a cache
 tier's flushes and promotes run the base pool's EC write and read.
 
-Not ported yet, and refused rather than ignored (``_NOT_PORTED``):
-``osd_ec_mesh`` (the mesh lane, ROADMAP Queue A item 8) raises at
-construction.
+With ``osd_ec_mesh`` on, matrix-codec EC math takes the dispatcher's
+mesh lane: ``parallel.engine.get_mesh_engine(osd_ec_mesh_devices,
+device=...)`` splits each batch over the lanes of a device mesh (the
+cards for a CUDA OSD, CPU lanes for ``device="cpu"``), and each lane
+runs ``gf_matmul`` on its card.
 """
 
 from __future__ import annotations
@@ -112,12 +114,6 @@ EOPNOTSUPP = 95
 MAP_WAIT_S = 10.0
 
 OI_KEY = "_"  # object-info xattr (reference OI_ATTR)
-
-_NOT_PORTED = {
-    "osd_ec_mesh": "the mesh lane waits for ROADMAP Queue A item 8 "
-                   "(multi-device EC)",
-}
-
 
 class WaiterBase:
     """Gather-N-replies primitive shared by write/read/scan waiters.
@@ -238,9 +234,6 @@ class OSD(Dispatcher):
 
         self.config = config or Config()
         cfg = self.config
-        if cfg.osd_ec_mesh:
-            raise NotImplementedError(
-                f"osd_ec_mesh is not supported: {_NOT_PORTED['osd_ec_mesh']}")
         self.device = resolve(device)
         from ..common.log import install as _install_memlog
 
@@ -396,9 +389,21 @@ class OSD(Dispatcher):
             cut_off=cfg.osd_op_queue_cut_off,
             perf=pqos,
         )
+        # the mesh EC data path (osd_ec_mesh): batches split over the
+        # lanes of a device mesh, gathered reconstruct; None = the
+        # single-device path.  With the dispatcher on (default) the mesh
+        # is a DISPATCHER LANE — coalescing, QoS pacing, launch
+        # deadlines, and failover all apply to mesh traffic; only the
+        # dispatcher-off config keeps the direct per-op route
+        self.ec_mesh = None
+        if cfg.osd_ec_mesh:
+            from ..parallel.engine import get_mesh_engine
+
+            self.ec_mesh = get_mesh_engine(cfg.osd_ec_mesh_devices,
+                                           device=self.device)
         # cross-op EC microbatch dispatcher (default on), plus the
         # engine health supervisor (osd/ec_failover): fatal launch
-        # failures on the device lane replay on
+        # failures — on the single-device AND mesh lanes — replay on
         # the host fallback and trip the breaker; while tripped, the
         # QoS scheduler treats capacity as degraded and ec_background
         # pacing squeezes to reservation
@@ -449,6 +454,7 @@ class OSD(Dispatcher):
                 scheduler=self.scheduler,
                 supervisor=self.ec_supervisor,
                 launch_deadline=cfg.osd_ec_launch_deadline,
+                mesh_engine=self.ec_mesh,
                 launch_history=cfg.osd_ec_launch_history,
                 remote=self.accel_client,
             )
@@ -2483,9 +2489,10 @@ class OSD(Dispatcher):
             "opname": opname, "attr_ops": attr_ops,
         }
 
-    # -- EC math routing: the dispatcher vs the inline path ------------------
+    # -- EC math routing: the dispatcher, the mesh and the inline path -------
     @contextlib.contextmanager
-    def _ec_timed(self, op: str, nbytes: int, account: bool = True):
+    def _ec_timed(self, op: str, nbytes: int, mesh: bool,
+                  account: bool = True):
         """Shared kernel-boundary instrumentation for the encode/decode
         routers: one trace span + wall-time avg + per-engine GB/s gauge
         — one definition so the two paths cannot drift.
@@ -2498,11 +2505,13 @@ class OSD(Dispatcher):
         remains here."""
         pec = self.perf.get("ec")
         t0 = time.perf_counter()
-        with _trace_ec.span(f"ec_{op}", nbytes=nbytes, engine="host"):
+        with _trace_ec.span(f"ec_{op}", nbytes=nbytes,
+                            engine="mesh" if mesh else "host"):
             yield
         if not account:
             return
-        ec_util.account_ec_call(pec, op, nbytes, time.perf_counter() - t0)
+        ec_util.account_ec_call(pec, op, nbytes,
+                                time.perf_counter() - t0, mesh=mesh)
 
     async def _ec_encode_bufs(self, sinfo, codec, buf, *,
                               klass: str = "client",
@@ -2510,33 +2519,59 @@ class OSD(Dispatcher):
         """Encode router: with ``osd_ec_dispatch`` on, everything goes
         through the cross-op microbatch dispatcher (coalesced launches
         in a worker thread, so heartbeat/messenger/op-tracker tasks are
-        never frozen behind a device call).  Dispatcher off keeps the
-        inline ``ec_util`` route.  Bytes are identical on every route
-        (pinned by tests/test_torch_ec_dispatch.py)."""
+        never frozen behind a device call) — with ``osd_ec_mesh`` also
+        on, matrix codecs take its MESH LANE.  Dispatcher off keeps the
+        direct routes (mesh per-op, else inline ``ec_util``).  Bytes are
+        identical on every route (pinned by
+        tests/test_torch_ec_dispatch.py and
+        tests/test_torch_mesh_datapath.py)."""
         dispatched = self.ec_dispatch is not None
-        with self._ec_timed("encode", len(buf), account=not dispatched):
+        mesh = (
+            self.ec_dispatch.mesh_route(sinfo, codec) if dispatched
+            else self.ec_mesh is not None and self.ec_mesh.supports(codec)
+        )
+        with self._ec_timed("encode", len(buf), mesh,
+                            account=not dispatched):
             if dispatched:
                 return await self.ec_dispatch.encode(
                     sinfo, codec, buf, klass=klass
                 )
+            if mesh:
+                self.perf.get("ec").inc("mesh_encode_calls")
+                return self.ec_mesh.encode(sinfo, codec, buf)
             return ec_util.encode(sinfo, codec, buf)
 
     async def _ec_decode_concat(self, sinfo, codec, chunks, *,
                                 klass: str = "client",
                                 locality: "list[str] | None" = None,
                                 ) -> bytes:
-        """Reconstruct router: decodes ride the microbatch dispatcher
-        like encodes.  ``locality`` carries the surviving shards' OSD
-        locality labels (crush host names) so the accel router can
-        prefer the accelerator co-located with the survivor bytes."""
+        """Reconstruct router: missing rows rebuilt by the mesh's
+        gathered reconstruct when the engine applies; decodes ride the
+        microbatch dispatcher like encodes.  ``locality`` carries the
+        surviving shards' OSD locality labels (crush host names) so the
+        accel router can prefer the accelerator co-located with the
+        survivor bytes."""
+        k = codec.get_data_chunk_count()
+        missing = any(r not in chunks for r in range(k))
         dispatched = self.ec_dispatch is not None
+        mesh = (
+            self.ec_dispatch.mesh_route(sinfo, codec, missing=missing)
+            if dispatched
+            else (self.ec_mesh is not None
+                  and self.ec_mesh.supports(codec)
+                  and missing)
+        )
         nbytes = sum(int(c.size) for c in chunks.values())
-        with self._ec_timed("decode", nbytes, account=not dispatched):
+        with self._ec_timed("decode", nbytes, mesh,
+                            account=not dispatched):
             if dispatched:
                 return await self.ec_dispatch.decode_concat(
                     sinfo, codec, chunks, klass=klass,
                     locality=locality,
                 )
+            if mesh:
+                self.perf.get("ec").inc("mesh_decode_calls")
+                return self.ec_mesh.decode_concat(sinfo, codec, chunks)
             return ec_util.decode_concat(sinfo, codec, chunks)
 
     async def _ec_mutate_execute(

@@ -2,9 +2,7 @@
 in-flight ops.
 
 Counterpart of ``ceph_tpu/osd/ec_dispatch.py``, with its device lane,
-native-direct lane, fallback lanes and remote lane.  The mesh lane
-(multi-device EC) is not ported yet: ``mesh_engine`` stays in the
-signature and must be None.
+native-direct lane, fallback lanes, mesh lane and remote lane.
 
 The OSD's per-object batching (``ec_util.encode`` runs all stripes of
 ONE op in one device call) stops at the op boundary: N concurrent 64 KiB
@@ -44,7 +42,24 @@ stacked multi-op pass goes DRAM-bound.  The gates are ec_util's shared
 conditions the encode/decode stacks route on, so the lanes cannot
 drift.
 
-A fourth mechanism rides on top (the accelerator fault domain,
+A fourth mechanism is the **mesh lane** (the multi-device engine as a
+first-class dispatcher lane, not a bypass):
+
+- given a :class:`~ceph_tpu_torch.parallel.engine.MeshEcEngine` as
+  ``mesh_engine`` (the OSD's ``osd_ec_mesh``) and a matrix codec,
+  coalesced batches route to the mesh: stripes split over its lanes,
+  and reconstructs enter survivor-split and gather onto the lane that
+  rebuilds each byte slice.  Batch keys grow a mesh-slice dimension
+  ``(pg, shard)``, and the stripe bucketing aligns to
+  ``mesh_size x bucket`` (:func:`bucket_stripes_aligned`), so lanes
+  stay balanced and the program cache stays O(#buckets x
+  #mesh-slices).  The lane inherits ALL the machinery below: QoS
+  classes never share a mesh batch, ``launch_deadline`` bounds mesh
+  launches, and a fatal mesh failure (a card in the slice dying
+  included) replays bit-identically on the host fallback via the same
+  classifier and supervisor.
+
+A fifth mechanism rides on top (the accelerator fault domain,
 osd/ec_failover):
 
 - **engine failover** — a batched device launch that fails with a
@@ -62,7 +77,7 @@ osd/ec_failover):
   device call can never silently freeze the OSD.  Fault hooks
   ``inject_engine_failure`` / ``inject_launch_hang`` prove all of it.
 
-A fifth mechanism is the **remote lane** (the shared accelerator
+A sixth mechanism is the **remote lane** (the shared accelerator
 service, ``accel``):
 
 - given an :class:`~ceph_tpu_torch.accel.client.AccelClient` as
@@ -113,11 +128,6 @@ from . import ec_util
 
 logger = logging.getLogger("ceph_tpu_torch.ec_dispatch")
 
-_NOT_PORTED = {
-    "mesh_engine": "the mesh lane waits for ROADMAP Queue A item 8 "
-                   "(multi-device EC)",
-}
-
 
 class LaunchDeadlineExceeded(RuntimeError):
     """A batched device launch outlived osd_ec_launch_deadline: the
@@ -128,6 +138,20 @@ class LaunchDeadlineExceeded(RuntimeError):
 def bucket_stripes(s: int) -> int:
     """Smallest power of two >= ``s`` — the launch shape bucket."""
     return 1 << max(0, (int(s) - 1).bit_length())
+
+
+def bucket_stripes_aligned(s: int, quantum: int = 1,
+                           bucket: bool = True) -> int:
+    """Mesh-lane bucketing: round ``s`` up to ``quantum * 2^j`` (the
+    mesh size times a power-of-two bucket), so every lane gets the same
+    stripe count AND the program cache stays O(log max_S) per mesh
+    slice.  With ``bucket=False`` only the mesh alignment is applied
+    (lanes must stay balanced even when the operator disables
+    bucketing)."""
+    units = max(1, -(-int(s) // int(quantum)))
+    if bucket:
+        units = bucket_stripes(units)
+    return int(quantum) * units
 
 
 class _Op:
@@ -161,17 +185,19 @@ class _Batch:
     """One still-collecting batch for a queue key."""
 
     __slots__ = ("kind", "codec", "sinfo", "ops", "stripes", "timer",
-                 "lane", "klass")
+                 "lane", "quantum", "klass")
 
     def __init__(self, kind: str, codec, sinfo: ec_util.StripeInfo,
-                 lane: str = "device", klass: str = "client"):
+                 lane: str = "device", quantum: int = 1,
+                 klass: str = "client"):
         self.kind = kind  # "enc" | "dec"
         self.codec = codec
         self.sinfo = sinfo
         self.ops: list[_Op] = []
         self.stripes = 0
         self.timer: asyncio.TimerHandle | None = None
-        self.lane = lane  # "device" | "remote"
+        self.lane = lane  # "device" | "mesh" | "remote"
+        self.quantum = int(quantum)  # stripe alignment (mesh size)
         self.klass = klass  # QoS traffic class (classes never mix)
 
 
@@ -189,9 +215,12 @@ class ECDispatcher:
                  supervisor=None, launch_deadline: float = 0.0,
                  hb_handle=None, mesh_engine=None,
                  launch_history: int = 64, remote=None):
-        if mesh_engine is not None:
-            raise ValueError("mesh_engine is not supported: "
-                             f"{_NOT_PORTED['mesh_engine']}")
+        if mesh_engine is not None and not all(
+                callable(getattr(mesh_engine, a, None))
+                for a in ("routes", "mesh_key", "encode_batch",
+                          "decode_batch", "encode", "decode_concat")):
+            raise ValueError("mesh_engine must be a mesh engine "
+                             "(parallel.engine.MeshEcEngine)")
         if remote is not None and not all(
                 callable(getattr(remote, a, None))
                 for a in ("routes", "run_batch", "note_failure", "dump")):
@@ -206,6 +235,11 @@ class ECDispatcher:
         # network trip must not bench the local device), and a failed
         # remote batch replays on the LOCAL fallback engine
         self._remote = remote
+        # the multi-device mesh lane (parallel/engine.MeshEcEngine; None
+        # = single-device only).  supports()/routes() never touch a
+        # device; the first mesh-lane submit resolves the lanes lazily
+        # via mesh_key
+        self._mesh = mesh_engine
         # the OSD's QoS scheduler (duck-typed: an async
         # ``pace(klass, cost)``; None standalone): BACKGROUND stripes
         # (klass != "client") pace through it before entering a batch
@@ -247,7 +281,7 @@ class ECDispatcher:
         self.inject_launch_hang = 0.0
         self._inject_n = 0
         self._inflight_launches: dict[int, float] = {}  # id -> start
-        # the (kind, sinfo, codec) of the launch that last tripped the
+        # the (kind, sinfo, codec, lane) of the launch that last tripped the
         # breaker — what the canary probe re-verifies
         self._last_trip: tuple | None = None
         if supervisor is not None and supervisor.probe is None:
@@ -260,8 +294,7 @@ class ECDispatcher:
             "deadline_timeouts": 0,
             "flush": {"size": 0, "window": 0, "stop": 0},
             # per-route slice of the above (pad waste and batch sizes
-            # attributable per lane; the mesh and remote rows keep the
-            # reference's dump shape and stay zero until ported)
+            # attributable per lane)
             "lanes": {
                 lane: {"batches": 0, "ops": 0, "stripes": 0,
                        "pad_stripes": 0, "pad_bytes": 0}
@@ -271,9 +304,9 @@ class ECDispatcher:
             "cross_client_batches": 0,
         }
         # padded S -> launches, per lane (O(log max_S) rows per lane
-        # by construction; the mesh table stays empty until that lane
-        # is ported; the remote lane ships unpadded — the accelerator
-        # owns the bucketing for its own launches — so it has no table)
+        # by construction; the mesh lane's rows are mesh_size-aligned;
+        # the remote lane ships unpadded — the accelerator owns the
+        # bucketing for its own launches — so it has no table)
         self._buckets_seen: dict[str, dict[int, int]] = {
             "device": {}, "mesh": {},
         }
@@ -323,14 +356,19 @@ class ECDispatcher:
         # opt-in via osd_ec_accel_mode) outranks every local lane — its
         # whole point is taking the device math off this host; its OWN
         # breaker beacon gates it, not the local supervisor.  Below it,
-        # the native lane outranks the device lane on a CPU codec
+        # the mesh (osd_ec_mesh, an explicit operator opt-in) outranks
+        # the native C engine; the native lane outranks the device lane
+        # on a CPU codec
         if self._remote is not None and self._remote.routes(codec):
             key = ("enc", "remote", None, klass, id(codec),
                    sinfo.stripe_width, sinfo.chunk_size)
             return await self._submit(key, "enc", codec, sinfo, buf,
                                       stripes, lane="remote",
                                       klass=klass, client=client)
-        if ec_util.native_encode_path(sinfo, codec):
+        lane = "mesh" if (
+            self._mesh is not None and self._mesh.routes(sinfo, codec)
+        ) else "device"
+        if lane != "mesh" and ec_util.native_encode_path(sinfo, codec):
             # no launch overhead to amortize on the C engine — keep
             # per-op (cache-resident) calls, just off the loop
             return await self._run_native_direct(
@@ -338,17 +376,23 @@ class ECDispatcher:
                 klass=klass, client=client,
             )
         if self._supervisor is not None and not self._supervisor.device_ok():
-            # breaker TRIPPED/PROBING: the device engine is out of the
-            # data path; serve from the host fallback (still off the
-            # loop; the canary is the only device traffic until the
+            # breaker TRIPPED/PROBING: the device engine — mesh slice
+            # included, it is the same accelerator fault domain — is out
+            # of the data path; serve from the host fallback (still off
+            # the loop; the canary is the only device traffic until the
             # supervisor re-promotes)
             return await self._run_fallback_direct(
                 ec_util.encode_fallback, sinfo, codec, buf,
                 "encode", buf.size, klass=klass, client=client,
             )
-        key = ("enc", "device", None, klass, id(codec),
+        mesh_slice = (
+            self._mesh.mesh_key(codec.get_data_chunk_count())
+            if lane == "mesh" else None
+        )
+        key = ("enc", lane, mesh_slice, klass, id(codec),
                sinfo.stripe_width, sinfo.chunk_size)
         return await self._submit(key, "enc", codec, sinfo, buf, stripes,
+                                  lane=lane, mesh_slice=mesh_slice,
                                   klass=klass, client=client)
 
     async def decode_concat(
@@ -397,7 +441,15 @@ class ECDispatcher:
                                       stripes, lane="remote",
                                       klass=klass, client=client,
                                       locality=locality)
-        if ec_util.native_decode_path(codec, shard_len):
+        # the mesh lane only earns its keep when rows are MISSING (the
+        # gathered reconstruct); a plain concat read stays on the
+        # device/native lanes
+        lane = "mesh" if (
+            self._mesh is not None
+            and self._mesh.routes(sinfo, codec)
+            and missing
+        ) else "device"
+        if lane != "mesh" and ec_util.native_decode_path(codec, shard_len):
             return await self._run_native_direct(
                 ec_util.decode_concat, sinfo, codec, arrs, "decode",
                 shard_len * len(arrs), klass=klass, client=client,
@@ -409,10 +461,28 @@ class ECDispatcher:
                 client=client,
             )
         present = tuple(sorted(arrs))
-        key = ("dec", "device", None, klass, id(codec),
+        mesh_slice = self._mesh.mesh_key(k) if lane == "mesh" else None
+        key = ("dec", lane, mesh_slice, klass, id(codec),
                sinfo.stripe_width, sinfo.chunk_size, present)
         return await self._submit(key, "dec", codec, sinfo, arrs, stripes,
+                                  lane=lane, mesh_slice=mesh_slice,
                                   klass=klass, client=client)
+
+    def mesh_route(self, sinfo, codec, *, missing: bool = True) -> bool:
+        """Would a request for this (geometry, codec) take the mesh
+        lane?  The OSD router tags its trace spans with this — ONE
+        gate, so the span's engine label cannot drift from the actual
+        route.  ``missing=False`` marks a decode whose wanted rows are
+        all present (no reconstruct — the mesh does not apply).  A
+        TRIPPED/PROBING breaker answers False too: those requests are
+        served by the host fallback, and the span must say so."""
+        return (
+            self._mesh is not None
+            and missing
+            and self._mesh.routes(sinfo, codec)
+            and (self._supervisor is None
+                 or self._supervisor.device_ok())
+        )
 
     def _inline_encode_fn(self):
         """Engine for the inline per-op lanes (empty payload, shutdown
@@ -495,7 +565,7 @@ class ECDispatcher:
                 }
                 for b in self._open.values()
             ],
-            "mesh_lane": False,
+            "mesh_lane": self._mesh is not None,
             **({"remote": self._remote.dump()}
                if self._remote is not None else {}),
             "totals": {
@@ -504,7 +574,7 @@ class ECDispatcher:
             },
             # the observed bucketing tables: padded stripe count ->
             # launches that used it, per lane (O(log max_S) rows each
-            # by construction)
+            # by construction; the mesh table's rows are mesh-aligned)
             "buckets": {
                 str(k): v
                 for k, v in sorted(self._buckets_seen["device"].items())
@@ -586,6 +656,7 @@ class ECDispatcher:
 
     async def _submit(self, key: tuple, kind: str, codec, sinfo,
                       payload, stripes: int, *, lane: str = "device",
+                      mesh_slice: tuple | None = None,
                       klass: str = "client",
                       client: str | None = None,
                       locality: "list[str] | None" = None):
@@ -601,8 +672,15 @@ class ECDispatcher:
             self._flush(key, "size")
             b = None
         if b is None:
+            # the mesh lane's alignment quantum is the mesh size (the
+            # k+m-independent pg x shard slice the batch splits over):
+            # encode stripes split across every lane, decode bytes
+            # split across the pg axis — both need ΣS % mesh_size == 0
+            quantum = (
+                mesh_slice[0] * mesh_slice[1] if mesh_slice else 1
+            )
             b = self._open[key] = _Batch(kind, codec, sinfo, lane=lane,
-                                         klass=klass)
+                                         quantum=quantum, klass=klass)
             delay = self.window if self._last_ops > 1 else 0.0
             b.timer = loop.call_later(delay, self._flush, key, "window")
         fut = loop.create_future()
@@ -721,7 +799,7 @@ class ECDispatcher:
                 self.flight.end(flight, served="error", error=repr(e))
                 return
             if b.lane != "remote":
-                self._last_trip = (b.kind, b.sinfo, b.codec)
+                self._last_trip = (b.kind, b.sinfo, b.codec, b.lane)
             try:
                 results, pad, seconds = await self._replay(b, ops)
                 extra = {}
@@ -917,7 +995,17 @@ class ECDispatcher:
         key = self._last_trip
         if key is None:
             return True  # never tripped via a batch: nothing to disprove
-        kind, sinfo, codec = key
+        kind, sinfo, codec, lane = key
+        # probe the LANE that tripped: a dead card in the mesh slice
+        # fails mesh launches while the single-device engine may still
+        # answer — an ec_util canary would then re-promote a mesh lane
+        # that is still broken and flap
+        if lane == "mesh":
+            enc_dev = self._mesh.encode
+            dec_dev = self._mesh.decode_concat
+        else:
+            enc_dev = ec_util.encode
+            dec_dev = ec_util.decode_concat
 
         def _probe_sync() -> bool:
             self._maybe_inject()
@@ -930,13 +1018,13 @@ class ECDispatcher:
                 # RECONSTRUCT program, the one that actually tripped
                 survivors = {s: np.asarray(v)
                              for s, v in shards.items() if s != 0}
-                got = ec_util.decode_concat(sinfo, codec, survivors)
+                got = dec_dev(sinfo, codec, survivors)
                 want = ec_util.decode_concat_fallback(
                     sinfo, codec, survivors
                 )
                 # copy-ok: one-stripe canary, cold re-promotion path
                 return bytes(got) == bytes(want)
-            got = ec_util.encode(sinfo, codec, buf)
+            got = enc_dev(sinfo, codec, buf)
             want = shards
             return set(got) == set(want) and all(
                 np.array_equal(np.asarray(got[s]), np.asarray(want[s]))
@@ -955,11 +1043,12 @@ class ECDispatcher:
         """``served`` names the engine that actually produced the
         bytes: the batch's lane normally, ``"fallback"`` after a
         failover replay.  Per-route evidence (the lane split, the
-        bucket table, the per-engine GB/s gauges) follows SERVED, not
-        routed: a device whose launches are all being replayed on the
-        host must not keep painting healthy device throughput — that is
-        exactly the outage those counters exist to reveal (the
-        failovers/replayed_ops counters carry the replay side)."""
+        bucket tables, the mesh_* family, the per-engine GB/s gauges)
+        follows SERVED, not routed: a device or mesh slice whose
+        launches are all being replayed on the host must not keep
+        painting healthy throughput — that is exactly the outage those
+        counters exist to reveal (the failovers/replayed_ops counters
+        carry the replay side)."""
         if served is None:
             served = b.lane
         stripes = sum(op.stripes for op in ops)
@@ -1003,7 +1092,20 @@ class ECDispatcher:
         pec.hist("dispatch_batch_size_histogram", len(ops))
         # the per-lane occupancy/pad/batch-size split (a fallback
         # replay is counted by failovers/replayed_ops)
-        if served == "device":
+        if served == "mesh":
+            pec.inc("dispatch_batches_mesh")
+            pec.inc("dispatch_ops_mesh", len(ops))
+            if pad:
+                pec.inc("dispatch_pad_stripes_mesh", pad)
+                pec.inc("dispatch_pad_bytes_mesh",
+                        pad * b.sinfo.stripe_width)
+            pec.observe("dispatch_occupancy_mesh", occupancy)
+            pec.hist("dispatch_batch_size_mesh_histogram", len(ops))
+            pec.inc("mesh_batches")
+            pec.inc("mesh_encode_calls" if b.kind == "enc"
+                    else "mesh_decode_calls", len(ops))
+            pec.set("mesh_devices", b.quantum)
+        elif served == "device":
             pec.inc("dispatch_batches_device")
             pec.inc("dispatch_ops_device", len(ops))
             if pad:
@@ -1028,19 +1130,30 @@ class ECDispatcher:
         # daemon's op-level timer includes queue wait and batch
         # sharing, so on the dispatch route the encode/decode time
         # avg + size x latency histogram + GB/s gauge are all fed
-        # here, once per launch
+        # here, once per launch.  The mesh lane feeds the mesh_* GB/s
+        # gauges only when the mesh actually served — a fallback
+        # replay's wall time belongs to the host-path gauges.
         op = "encode" if b.kind == "enc" else "decode"
         if b.kind == "enc":
             nbytes = stripes * b.sinfo.stripe_width
         else:
             nbytes = stripes * b.sinfo.chunk_size * len(ops[0].payload)
-        ec_util.account_ec_call(pec, op, nbytes, seconds)
+        ec_util.account_ec_call(pec, op, nbytes, seconds,
+                                mesh=served == "mesh")
 
     # -- the batched launch (executor thread) --------------------------------
 
-    def _pad_for(self, total_stripes: int) -> int:
-        """Zero stripes to add (only device-lane codecs reach a batch —
-        the native engine took the direct lane in encode/decode)."""
+    def _pad_for(self, b: _Batch, total_stripes: int) -> int:
+        """Zero stripes to add (only device- and mesh-lane codecs reach
+        a batch — the native engine took the direct lane in
+        encode/decode).  The mesh lane always pads to its alignment
+        quantum (lanes must stay balanced across the slice even with
+        bucketing disabled); bucketing then rounds the per-lane stripe
+        count to a power of two — ``mesh_size x bucket``."""
+        if b.quantum > 1:
+            return bucket_stripes_aligned(
+                total_stripes, b.quantum, self.bucket
+            ) - total_stripes
         if not self.bucket:
             return 0
         return bucket_stripes(total_stripes) - total_stripes
@@ -1054,20 +1167,25 @@ class ECDispatcher:
         stalled waiter pins only its own bytes, not the whole padded
         batch output.
 
-        ``engine`` picks the math: "device" is ec_util on the codec's
-        device (fault-injection hooks apply); "fallback" is the host
-        replay route (ec_util.*_fallback — no injection, no bucketing:
-        the host engines have no launch shapes to bound)."""
+        ``engine`` picks the math: "device" is the batch's lane —
+        ec_util on the codec's device, or the mesh engine's lanes
+        (fault-injection hooks apply to both: the mesh slice is the same
+        accelerator fault domain); "fallback" is the host replay route
+        (ec_util.*_fallback — no injection, no bucketing: the host
+        engines have no launch shapes to bound)."""
         fallback = engine == "fallback"
         if fallback:
             encode_fn, decode_fn = (ec_util.encode_fallback,
                                     ec_util.decode_fallback)
+        elif b.lane == "mesh":
+            encode_fn, decode_fn = (self._mesh.encode_batch,
+                                    self._mesh.decode_batch)
         else:
             encode_fn, decode_fn = ec_util.encode, ec_util.decode
         sinfo, codec = b.sinfo, b.codec
         cs = sinfo.chunk_size
         total = sum(op.stripes for op in ops)
-        pad = 0 if fallback else self._pad_for(total)
+        pad = 0 if fallback else self._pad_for(b, total)
         if b.kind == "enc":
             if len(ops) == 1 and not pad:
                 cat = ops[0].payload  # single op, snug bucket: no gather

@@ -122,15 +122,19 @@ def native_decode_path(ec_impl, shard_len: int) -> bool:
     return shard_len % 8 == 0 and _native_matrix_engine(ec_impl)
 
 
-def account_ec_call(pec, op: str, nbytes: int, seconds: float) -> None:
+def account_ec_call(pec, op: str, nbytes: int, seconds: float,
+                    *, mesh: bool = False) -> None:
     """THE definition of the ``ec.{encode,decode}`` device-wall-time
     feed — time avg + (size x latency) histogram + per-engine GB/s
-    gauge — shared by the microbatch dispatcher's batch launches and its
+    gauge — shared by the OSD router (inline/direct-mesh routes), the
+    microbatch dispatcher's batch launches (``mesh=True`` on its mesh
+    lane, feeding the ``mesh_*_gbps`` gauges per launch), and its
     native direct lane, so the call sites cannot drift."""
     pec.observe(f"{op}_time", seconds)
     pec.hist(f"{op}_time_histogram", nbytes, seconds)
     if seconds > 0:
-        pec.set(f"{op}_gbps", nbytes / seconds / 1e9)
+        pec.set(f"mesh_{op}_gbps" if mesh else f"{op}_gbps",
+                nbytes / seconds / 1e9)
 
 
 def _check_batch_alignment(sinfo: StripeInfo, ec_impl) -> None:

@@ -40,6 +40,10 @@ import time
 from ..osd.churn import ChurnPlanner
 from ..osd.osdmap import OSDMap
 
+# how long the accelerator-death scenario waits for the fleet's first
+# recovery-class launch before it fails
+ACCEL_DEATH_WAIT_S = 30.0
+
 
 class ClientLoad:
     """Sustained client writes with ack accounting.
@@ -410,7 +414,10 @@ class StormDriver:
         route through the shared accelerator fleet; killing the serving
         accelerator mid-storm must fail the batches over (next accel,
         else local fallback) with zero failed ops — the accelerator
-        fleet's failover discipline applied to recovery traffic."""
+        fleet's failover discipline applied to recovery traffic.  The
+        kill waits for the fleet's first recovery-class launch, up to
+        ``ACCEL_DEATH_WAIT_S``; none in that time fails the
+        scenario."""
         if victim is None:
             victim = sorted(self.cluster.osds)[-1]
         await asyncio.sleep(settle_writes)
@@ -418,15 +425,16 @@ class StormDriver:
         await self.cluster.wait_for_osd_down(victim)
         await asyncio.sleep(settle_writes)
 
-        async def _kill_accel_soon():
-            # mid-recovery: let the rejoin land and the first decode
-            # batches reach the accelerator, then SIGKILL it
-            await asyncio.sleep(0.15)
+        async def _kill_accel_mid_recovery():
+            # mid-recovery: once the rejoin's first recovery batch has
+            # reached the fleet, SIGKILL the serving accelerator
             names = sorted(self.cluster.accels)
-            if names:
-                await self.cluster.kill_accel(names[0], crash=True)
+            if not names:
+                return
+            await self._recovery_launch_seen(ACCEL_DEATH_WAIT_S)
+            await self.cluster.kill_accel(names[0], crash=True)
 
-        killer = asyncio.ensure_future(_kill_accel_soon())
+        killer = asyncio.ensure_future(_kill_accel_mid_recovery())
         await self.cluster.restart_osd(victim)
         await self.cluster.wait_for_osd_up(victim)
         await killer
@@ -438,6 +446,25 @@ class StormDriver:
         return result
 
     # -- helpers -------------------------------------------------------------
+
+    async def _recovery_launch_seen(self, timeout: float) -> None:
+        """Return once an accelerator's flight recorder holds a
+        recovery-class launch, in flight or done; raise after
+        ``timeout`` seconds without one."""
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout
+        while True:
+            for acc in self.cluster.accels.values():
+                d = acc.dispatch.flight.dump()
+                if any(r.get("klass") == "recovery"
+                       for r in d["in_flight"] + d["launches"]):
+                    return
+            if loop.time() >= deadline:
+                raise RuntimeError(
+                    f"accelerator death: no recovery-class launch reached "
+                    f"the accelerator fleet within {timeout:g} s"
+                )
+            await asyncio.sleep(0.001)
 
     def _sum_counter(self, family: str, key: str) -> int:
         total = 0

@@ -273,6 +273,30 @@ Phases, each fatal on any mismatch or exception:
    clock), the card's memory in use and the traced process's idle share
    (that process's view only).  Each part runs under
    ``asyncio.wait_for``.
+16. the mesh lane on the card, with the launch counts set to 0 just
+   before it.  (a) the card's own mesh (``get_mesh_engine(0)``: 1 x 1
+   on one card) as the mesh lane of an ``ECDispatcher`` built as phase
+   6's: pool A's 64 x 4 MiB encoded, parity equal to a device-lane
+   dispatcher's and ``ec_util.encode``'s, then ``decode_concat`` with
+   shards {1, 5, 9} lost equal to the originals; the same for jerasure
+   reed_sol_van k=8 m=3 w=16 (16 objects).  (b) ``MeshEcEngine(devices=
+   [card] * 4)``: pool A (a 1 x 4 grid, the gather over ``shard``) and
+   isa k=7 m=3 (16 objects, 4 x 1, the prime-k gather over ``pg``)
+   through its dispatcher, bytes equal to (a)'s, reads equal to the
+   originals: the only run of the gather copies on a card.  (c) a
+   4-OSD ``MiniCluster`` on the card with ``osd_ec_mesh`` on, isa k=2
+   m=2 (8 PGs): 16 x 4 MiB writes, ``mesh_encode_calls`` and mesh
+   batches above 0, every OSD on the card's mesh engine, a healthy
+   read, and a read with one OSD down that reconstructs through the
+   mesh; every stored shard equal to a mesh-off cluster's.  (d) one
+   ``kernel trace`` window over (b)'s reconstructs and two
+   ``probe_gather`` calls: ``mesh_reconstruct`` must show
+   ``collective`` (the gather's device-to-device copies) and
+   ``fused_op`` (``gf_matmul``) time, and the capture must be whole.
+   Every batch of (a) and (b) on the mesh lane and none off the card;
+   ``gf_matmul`` must launch in (a), (b) and (c).  It prints each step's
+   GB/s (host clock) beside phase 6's, the gather copies' device ms and
+   the launches.  The phase runs under ``asyncio.wait_for``.
 
 Output: the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on its main path, phase 4 or 7, with ``launches_osd_engine``
@@ -283,7 +307,7 @@ from phase 10, ``launches_observability`` from phase 11 and
 phase 13, ``launches_osd_scrub_tier`` from phase 14, and from phase 15
 ``launches_storm``, part (a)'s launches in this process, and
 ``launches_proc_cluster``, the traced OSD process's captured launches,
-beside it), and last
+beside it, and ``launches_mesh`` from phase 16), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -4307,6 +4331,333 @@ def run_proc_cluster(dev, rng, root: str | None = None) -> dict:
     return captured
 
 
+# -- phase 16: the mesh lane on the card ---------------------------------------
+
+# (b): four lanes of the one card
+MESH_LANES = 4
+# (a)'s w=16 pool and (b)'s prime-k pool, 16 objects of 4 MiB each
+MESH_W16_OPS = 16
+POOL_K7 = ("isa", {"k": "7", "m": "3"}, 4096)
+MESH_K7_OPS = 16
+# the erasures of every degraded read in (a) and (b)
+MESH_LOST = (1, 5, 9)
+# (c): isa k=2 m=2 on 4 OSDs (an m=1 code would take the XOR program,
+# not gf_matmul), 8 PGs
+MESH_CLUSTER_OSDS = 4
+MESH_CLUSTER_POOL = {"mesh": ({"plugin": "isa", "k": "2", "m": "2"}, 4096)}
+MESH_CLUSTER_PG_NUM = {"mesh": 8}
+MESH_CLUSTER_OBJECTS = 16
+MESH_PHASE_LIMIT_S = 300.0
+
+
+def run_mesh(dev, rng, in_process: dict) -> dict:
+    """Phase 16 (see the module docstring).  ``in_process`` holds phase
+    6's GB/s of the same pool-A steps, printed beside the mesh's.
+    Returns the kernels' launch counts over the phase, counted from one
+    reset."""
+    import asyncio
+
+    import torch
+
+    from ceph_tpu_torch.common.perf_counters import PerfCountersCollection
+    from ceph_tpu_torch.models import registry
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.ops.device_trace import DeviceTracer
+    from ceph_tpu_torch.ops.profiler import profiler
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.ec_dispatch import ECDispatcher
+    from ceph_tpu_torch.osd.ec_failover import HEALTHY, STATE_NAMES, EngineSupervisor
+    from ceph_tpu_torch.osd.ec_perf import create_ec_perf
+    from ceph_tpu_torch.parallel.engine import MeshEcEngine, get_mesh_engine
+    from ceph_tpu_torch.rados import MiniCluster
+    from ceph_tpu_torch.store import CollectionId, ObjectId
+
+    def make_pool(spec):
+        plugin, profile, chunk = spec
+        codec = registry.instance().factory(plugin, dict(profile, plugin=plugin), device=dev)
+        return codec, ec_util.StripeInfo(codec.get_data_chunk_count() * chunk, chunk)
+
+    codec_a, sinfo_a = make_pool(POOL_A)
+    codec_w, sinfo_w = make_pool(POOL_W16)
+    codec_7, sinfo_7 = make_pool(POOL_K7)
+    objs = [rng.integers(0, 256, size=OSD_OBJECT_SIZE, dtype=np.uint8)
+            for _ in range(OSD_OPS)]
+    objs_7 = [np.frombuffer(sinfo_7.pad_to_stripe(o.tobytes()), dtype=np.uint8)
+              for o in objs[:MESH_K7_OPS]]
+    card_mesh = get_mesh_engine(0, device=dev)
+    lanes4 = MeshEcEngine(devices=[dev] * MESH_LANES)
+    if dev.type == "cuda":
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if card_mesh.devices != cards:
+            raise AssertionError(f"get_mesh_engine(0) took {card_mesh.devices}, not {cards}")
+    geometry = {
+        "card": (card_mesh.mesh_key(8), card_mesh.reconstruct_axis(8)),
+        "lanes k=8": (lanes4.mesh_key(8), lanes4.reconstruct_axis(8)),
+        "lanes k=7": (lanes4.mesh_key(7), lanes4.reconstruct_axis(7)),
+    }
+    log(f"  meshes (pg, shard) and gather axis: {geometry}")
+    if geometry["lanes k=8"] != ((1, 4), "shard") or geometry["lanes k=7"] != ((4, 1), "pg"):
+        raise AssertionError(f"the 4-lane mesh's geometry: {geometry}")
+    launches = {}
+
+    def snapshot():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return gf_cuda.launch_counts()
+
+    def counted(what, since):
+        got = launches[what] = {n: c - since[n] for n, c in snapshot().items()}
+        if got["gf_matmul"] == 0:
+            raise AssertionError(f"gf_matmul was not launched in {what}")
+        log(f"  launches in {what}: {got}")
+
+    def dispatcher(mesh):
+        """A dispatcher built as phase 6's (the OSD's), with ``mesh`` as
+        its mesh lane."""
+        pec = create_ec_perf(PerfCountersCollection())
+        sup = EngineSupervisor(enabled=True, perf=pec, probe_interval=OSD_PROBE_INTERVAL_S)
+        return ECDispatcher(perf=pec, window=OSD_WINDOW_S, max_stripes=OSD_MAX_STRIPES,
+                            bucket=True, max_workers=OSD_WORKERS, supervisor=sup,
+                            launch_deadline=OSD_LAUNCH_DEADLINE_S, mesh_engine=mesh)
+
+    def lane_only(disp, what, lane):
+        """Every batch on ``lane``, none off the card, the breaker
+        HEALTHY."""
+        t = disp.dump()["totals"]
+        served_off_card(what, t, {})
+        other = "device" if lane == "mesh" else "mesh"
+        if not t["lanes"][lane]["batches"] or t["lanes"][other]["batches"]:
+            raise AssertionError(f"{what}: lanes {t['lanes']}")
+        state = disp.engine_health()["state"]
+        if state != STATE_NAMES[HEALTHY]:
+            raise AssertionError(f"{what}: breaker {state}")
+
+    async def timed(coros):
+        t0 = time.perf_counter()
+        out = await asyncio.gather(*coros)
+        return out, time.perf_counter() - t0
+
+    def rate(nbytes, seconds):
+        return f"{nbytes / seconds / 1e9:.3f} GB/s ({seconds * 1e3:.1f} ms)"
+
+    def lost(shards, erased=MESH_LOST):
+        return {s: v for s, v in shards.items() if s not in erased}
+
+    async def check_reads(what, disp, sinfo, codec, shard_sets, want):
+        outs, s = await timed(disp.decode_concat(sinfo, codec, lost(sh))
+                              for sh in shard_sets)
+        for i, (o, got) in enumerate(zip(want, outs)):
+            if bytes(got) != o.tobytes():
+                raise AssertionError(f"{what} op {i}: decode_concat of {MESH_LOST} differs")
+        return s
+
+    total_a = OSD_OPS * OSD_OBJECT_SIZE
+
+    async def part_a():
+        """(a) the card's own mesh beside the device lane."""
+        since = snapshot()
+        mesh_d, dev_d = dispatcher(card_mesh), dispatcher(None)
+        got, s_mesh = await timed(mesh_d.encode(sinfo_a, codec_a, o) for o in objs)
+        ref, s_dev = await timed(dev_d.encode(sinfo_a, codec_a, o) for o in objs)
+        for i, o in enumerate(objs):
+            _check_shards(f"(a) pool A op {i}, mesh lane against the device lane",
+                          got[i], ref[i])
+            _check_shards(f"(a) pool A op {i}, mesh lane against ec_util.encode",
+                          got[i], ec_util.encode(sinfo_a, codec_a, o))
+        del ref
+        s_dec = await check_reads("(a) pool A", mesh_d, sinfo_a, codec_a, got, objs)
+        log(f"  (a) pool A, {OSD_OPS} x 4 MiB on the card's mesh, parity == the device "
+            f"lane's == ec_util.encode: encode {rate(total_a, s_mesh)} (device lane "
+            f"{rate(total_a, s_dev)}; phase 6: {in_process.get('pool A encode')}), "
+            f"decode_concat of {list(MESH_LOST)} == written {rate(total_a, s_dec)} "
+            f"(phase 6: {in_process.get('pool A decode [1, 5, 9]')}) (host clock)")
+        objs_w = objs[:MESH_W16_OPS]
+        got_w, s_w = await timed(mesh_d.encode(sinfo_w, codec_w, o) for o in objs_w)
+        ref_w = await asyncio.gather(*(dev_d.encode(sinfo_w, codec_w, o) for o in objs_w))
+        for i, o in enumerate(objs_w):
+            _check_shards(f"(a) w=16 op {i}, mesh lane against the device lane",
+                          got_w[i], ref_w[i])
+            _check_shards(f"(a) w=16 op {i}, mesh lane against ec_util.encode",
+                          got_w[i], ec_util.encode(sinfo_w, codec_w, o))
+        s_wd = await check_reads("(a) w=16", mesh_d, sinfo_w, codec_w, got_w, objs_w)
+        nw = MESH_W16_OPS * OSD_OBJECT_SIZE
+        log(f"  (a) jerasure reed_sol_van k=8 m=3 w=16, {MESH_W16_OPS} x 4 MiB: encode "
+            f"{rate(nw, s_w)}, decode_concat of {list(MESH_LOST)} {rate(nw, s_wd)} "
+            f"(host clock); bytes as pool A's")
+        lane_only(mesh_d, "(a) the mesh dispatcher", "mesh")
+        lane_only(dev_d, "(a) the device-lane dispatcher", "device")
+        log(f"  (a) mesh dispatcher: {mesh_d.dump()['totals']['lanes']['mesh']}, "
+            f"buckets {mesh_d.dump()['mesh_buckets']}")
+        await mesh_d.stop()
+        await dev_d.stop()
+        counted("(a)", since)
+        return got
+
+    async def part_b_d(got_a):
+        """(b) four lanes of the card, with (d) the trace window over
+        its reconstructs."""
+        since = snapshot()
+        d4 = dispatcher(lanes4)
+        got, s_enc = await timed(d4.encode(sinfo_a, codec_a, o) for o in objs)
+        for i in range(OSD_OPS):
+            _check_shards(f"(b) pool A op {i} on 4 lanes against (a)", got[i], got_a[i])
+        got7, s_enc7 = await timed(d4.encode(sinfo_7, codec_7, o) for o in objs_7)
+        for i, o in enumerate(objs_7):
+            _check_shards(f"(b) k=7 op {i} on 4 lanes against (a)'s mesh", got7[i],
+                          card_mesh.encode(sinfo_7, codec_7, o))
+            _check_shards(f"(b) k=7 op {i} against ec_util.encode", got7[i],
+                          ec_util.encode(sinfo_7, codec_7, o))
+        # (d): one trace window over the reconstructs
+        DeviceTracer.prepare()
+        svc = DeviceTracer()
+        prof = profiler()
+
+        def rec_calls():
+            e = prof.dump()["engines"]
+            return {n: e[n]["calls"] if n in e else 0
+                    for n in ("mesh_reconstruct", "mesh_gather")}
+
+        calls0 = rec_calls()
+        opened = svc.start(duration=TRACE_MAX_S, label="phase 16", max_duration=TRACE_MAX_S,
+                           device=dev)
+        if not opened.get("success"):
+            raise AssertionError(f"the trace window did not open: {opened}")
+        s_dec = await check_reads("(b) pool A", d4, sinfo_a, codec_a, got, objs)
+        s_dec7 = await check_reads("(b) k=7", d4, sinfo_7, codec_7, got7, objs_7)
+        probe_len = OSD_MAX_STRIPES * sinfo_a.chunk_size
+        lanes4.probe_gather(8, probe_len)
+        lanes4.probe_gather(7, probe_len)
+        window = svc.stop()
+        calls = {n: c - calls0[n] for n, c in rec_calls().items()}
+        n7 = sum(len(o) for o in objs_7)
+        log(f"  (b) 4 lanes of the card: pool A encode {rate(total_a, s_enc)}, bytes == (a); "
+            f"decode_concat of {list(MESH_LOST)} {rate(total_a, s_dec)} (gather over "
+            f"'shard'); k=7 encode {rate(n7, s_enc7)}, bytes == (a)'s mesh and "
+            f"ec_util.encode; k=7 decode_concat {rate(n7, s_dec7)} (prime-k gather over "
+            f"'pg'); every read == written (host clock)")
+        lane_only(d4, "(b) the 4-lane dispatcher", "mesh")
+        await d4.stop()
+        counted("(b)", since)
+        # (d)
+        if "error" in window or "unavailable" in window:
+            raise AssertionError(f"the trace window failed: {window}")
+        rec = window["engines"].get("mesh_reconstruct")
+        gat = window["engines"].get("mesh_gather", {})
+        log(f"  (d) trace window: buckets {window['buckets']}, capture "
+            f"{window['capture']}, mesh calls {calls}")
+        log(f"  (d) mesh_reconstruct: {rec}")
+        log(f"  (d) mesh_gather: {gat}")
+        if dev.type == "cuda":
+            if not rec or not rec["collective"] > 0 or not rec["fused_op"] > 0:
+                raise AssertionError(f"mesh_reconstruct without gather copies or kernel "
+                                     f"time: {rec}")
+            if window["capture"]["short"] or window["capture"]["intervals_without_device_events"]:
+                raise AssertionError(f"the window's capture is short: {window['capture']}")
+            log(f"  (d) the gather copies: {rec['collective'] * 1e3:.3f} ms over "
+                f"{calls['mesh_reconstruct']} reconstructs "
+                f"({rec['collective'] / calls['mesh_reconstruct'] * 1e3:.3f} ms each), beside "
+                f"the rebuild's kernels {rec['fused_op'] * 1e3:.3f} ms and the host<->card "
+                f"copies {rec['dma'] * 1e3:.3f} ms; the gather alone (probe_gather, "
+                f"{calls['mesh_gather']} calls of {probe_len} bytes a row): "
+                f"{gat.get('collective', 0.0) * 1e3:.3f} ms of lane copies, "
+                f"{gat.get('dma', 0.0) * 1e3:.3f} ms of uploads (device time)")
+
+    async def cluster_run(mesh_on):
+        """(c) a 4-OSD MiniCluster on the card, the mesh lane on or off:
+        16 x 4 MiB written; with it on, read back healthy and with one
+        OSD down.  Returns each object's stored shards."""
+        what = f"(c) mesh {'on' if mesh_on else 'off'}"
+        cluster = MiniCluster(n_osds=MESH_CLUSTER_OSDS, device=dev,
+                              config_overrides={"osd_ec_mesh": True} if mesh_on else None)
+        await cluster.start()
+        try:
+            cl = await cluster.client(op_timeout=CLUSTER_OP_TIMEOUT_S)
+            pool = (await create_ec_pools(cl, MESH_CLUSTER_POOL, MESH_CLUSTER_PG_NUM))["mesh"]
+            io = cl.io_ctx("mesh")
+            gate = asyncio.Semaphore(CLUSTER_INFLIGHT)
+            names = [f"mesh.{i:04d}" for i in range(MESH_CLUSTER_OBJECTS)]
+            nbytes = MESH_CLUSTER_OBJECTS * OSD_OBJECT_SIZE
+
+            async def write(i):
+                async with gate:
+                    await io.write_full(names[i], objs[i].tobytes())
+
+            async def read_all(step):
+                async def read(i):
+                    async with gate:
+                        if await io.read(names[i]) != objs[i].tobytes():
+                            raise AssertionError(f"{what}: {names[i]} differs in {step}")
+                t0 = time.perf_counter()
+                await asyncio.gather(*(read(i) for i in range(MESH_CLUSTER_OBJECTS)))
+                return rate(nbytes, time.perf_counter() - t0)
+
+            t0 = time.perf_counter()
+            await asyncio.gather(*(write(i) for i in range(MESH_CLUSTER_OBJECTS)))
+            w_rate = rate(nbytes, time.perf_counter() - t0)
+            stored = {}
+            for name in names:
+                pg, acting, _p = cl.osdmap.object_to_acting(name, pool.id)
+                stored[name] = {s: bytes(cluster.stores[o].read(CollectionId(f"{pg}s{s}"),
+                                                                ObjectId(name, s)))
+                                for s, o in enumerate(acting)}
+            if not mesh_on:
+                log(f"  {what}: write {w_rate} (host clock)")
+                return stored
+
+            def ec_sum(key):
+                return sum(o.perf.get("ec").get(key) for o in cluster.osds.values())
+
+            def mesh_batches():
+                return sum(o.ec_dispatch.dump()["totals"]["lanes"]["mesh"]["batches"]
+                           for o in cluster.osds.values())
+
+            enc_calls, enc_batches = ec_sum("mesh_encode_calls"), mesh_batches()
+            if not enc_calls or not enc_batches:
+                raise AssertionError(f"{what}: mesh_encode_calls {enc_calls}, mesh batches "
+                                     f"{enc_batches}")
+            for o in cluster.osds.values():
+                if o.ec_mesh is not card_mesh:
+                    raise AssertionError(f"{o.name}: not the card's mesh engine")
+                osd_off_card(o, what)
+            r_rate = await read_all("the healthy read")
+            _pg, acting, _p = cl.osdmap.object_to_acting(names[0], pool.id)
+            victim = acting[0]
+            await cluster.kill_osd(victim)
+            await cluster.wait_for_osd_down(victim)
+            d_rate = await read_all(f"the read with osd.{victim} down")
+            dec_calls = ec_sum("mesh_decode_calls")
+            if not dec_calls:
+                raise AssertionError(f"{what}: the read with osd.{victim} down made no "
+                                     "mesh reconstruct")
+            for o in cluster.osds.values():
+                osd_off_card(o, what)
+            log(f"  {what}: write {w_rate}, healthy read {r_rate}, read with osd.{victim} "
+                f"down {d_rate} (host clock); mesh_encode_calls {enc_calls}, mesh batches "
+                f"{enc_batches}, mesh_decode_calls {dec_calls}; no op off the card")
+            return stored
+        finally:
+            await cluster.stop()
+
+    async def main():
+        gf_cuda.reset_launches()
+        start = snapshot()
+        got_a = await part_a()
+        await part_b_d(got_a)
+        del got_a
+        since = snapshot()
+        plain = await cluster_run(False)
+        on = await cluster_run(True)
+        if on != plain:
+            bad = [n for n in plain if on.get(n) != plain[n]]
+            raise AssertionError(f"(c) stored shards differ from the mesh-off cluster's: {bad}")
+        log(f"  (c) every stored shard of the {len(on)} objects == the mesh-off cluster's")
+        counted("(c)", since)
+        counted("the whole phase", start)
+
+    asyncio.run(asyncio.wait_for(main(), MESH_PHASE_LIMIT_S))
+    return launches["the whole phase"]
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "ceph_tpu_torch" / "__init__.py").exists():
@@ -4398,6 +4749,9 @@ def main() -> int:
     phase("15. the storm, and the OSDs in their own processes on the card")
     storm_launches = run_storm(dev, rng)
     proc_launches = run_proc_cluster(dev, rng)
+
+    phase("16. the mesh lane on the card")
+    mesh_launches = run_mesh(dev, rng, osd_figures)
     for row in rows:
         row["launches_osd_engine"] = osd_launches[row["name"]]
         row["launches_churn"] = churn_launches[row["name"]]
@@ -4409,6 +4763,7 @@ def main() -> int:
         row["launches_osd_scrub_tier"] = scrub_tier_launches[row["name"]]
         row["launches_storm"] = storm_launches[row["name"]]
         row["launches_proc_cluster"] = proc_launches[row["name"]]
+        row["launches_mesh"] = mesh_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

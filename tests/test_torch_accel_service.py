@@ -185,6 +185,32 @@ class TestRemoteLaneIdentity:
 
         run(_with_service(body))
 
+    def test_encode_identity_on_the_accelerators_mesh_lane(self):
+        """An accelerator with ``osd_ec_mesh`` on serves the remote
+        lane's batches from its mesh lane (8 CPU lanes here): the
+        reference's bytes, and every client-side record names
+        ``mesh``, one of the served engines the reference's records
+        allow."""
+        codec = _codec(ISA)
+        sinfo = _sinfo(codec)
+        bufs = _bufs(8, sinfo, [1, 2, 3, 5, 8, 9])
+
+        async def body(acc, feeder):
+            outs = await asyncio.gather(*[
+                feeder.dispatch.encode(sinfo, codec, b) for b in bufs
+            ])
+            for b, out in zip(bufs, outs):
+                _assert_shards_equal(out, _ref_encode(ISA, sinfo, b))
+            lanes = acc.dispatch.dump()["totals"]["lanes"]
+            assert lanes["mesh"]["ops"] == len(bufs)
+            assert lanes["device"]["ops"] == 0
+            recs = [r for r in feeder.dispatch.flight.dump()["launches"]
+                    if r.get("lane") == "remote"]
+            assert recs and all(r["remote_served"] == "mesh" for r in recs), recs
+            assert acc.perf.get("ec").get("mesh_encode_calls") == len(bufs)
+
+        run(_with_service(body, config=Config({"osd_ec_mesh": True}, env="")))
+
     def test_encode_identity_w16(self):
         """w=16 codecs ride the remote lane bit-identically (the u16
         reinterpret path on the accelerator side)."""

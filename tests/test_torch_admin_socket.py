@@ -30,6 +30,7 @@ import signal
 import subprocess
 import sys
 import pathlib
+import time
 
 import pytest
 
@@ -49,7 +50,7 @@ from ceph_tpu_torch.common import (
     admin_command,
     register_common,
 )
-from ceph_tpu_torch.common import tracing
+from ceph_tpu_torch.common import op_tracker, tracing
 from ceph_tpu_torch.common.log import install as log_install
 from ceph_tpu_torch.osd.ec_perf import create_ec_perf
 
@@ -295,11 +296,25 @@ def test_accel_daemon_serves_and_removes_its_socket(tmp_path):
 
 
 def test_accel_daemon_still_refuses_the_mesh_lane(tmp_path):
+    """An accelerator daemon with ``osd_ec_mesh`` on and an admin socket
+    serves the mesh lane in ``dump_ec_dispatch``, as its dispatcher
+    dumps it."""
     from ceph_tpu_torch.accel import AccelDaemon
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        AccelDaemon("accel.5", device="cpu", config=Config(
-            {"admin_socket": str(tmp_path / "a.asok"), "osd_ec_mesh": True}, env=""))
+    sock = str(tmp_path / "a.asok")
+    acc = AccelDaemon("accel.5", device="cpu", config=Config(
+        {"admin_socket": sock, "osd_ec_mesh": True}, env=""))
+
+    async def body():
+        await acc.start()
+        try:
+            got = await cmd(sock, "dump_ec_dispatch")
+            assert got["mesh_lane"] is True
+            assert got["mesh_lane"] == acc.dispatch.dump()["mesh_lane"]
+        finally:
+            await acc.stop()
+
+    run(body())
 
 
 @pytest.mark.parametrize("role", ["mon", "accel"])
@@ -396,7 +411,24 @@ def test_hop_manifest_is_the_references():
     assert tracing.hop_manifest() == ref_tracing.hop_manifest()
 
 
-def test_op_tracker_bodies_equal_the_references():
+class _FixedClock:
+    """The ``time`` module with ``monotonic`` stopped at one instant."""
+
+    NOW = 1000.0
+
+    def monotonic(self):
+        return self.NOW
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_op_tracker_bodies_equal_the_references(monkeypatch):
+    # both trackers read one stopped clock, so every duration and age is
+    # computed from the same instants and compares exactly
+    monkeypatch.setattr(op_tracker, "time", _FixedClock())
+    monkeypatch.setattr(ref_op_tracker, "time", _FixedClock())
+
     def drive(cls):
         t = cls(history_size=2)
         ops = [t.create(trace=f"c:t{i}", tid=i, oid=f"o{i}") for i in range(4)]
@@ -409,9 +441,6 @@ def test_op_tracker_bodies_equal_the_references():
 
         def mask(body):
             for o in body["ops"]:
-                for k in ("duration", "age"):
-                    if k in o:
-                        o[k] = round(o[k], 1)
                 o["events"] = [e["event"] for e in o["events"]]
                 o["state_durations"] = sorted(o["state_durations"])
             return body

@@ -443,6 +443,103 @@ class TestWindowService:
         assert svc.dump() == r
 
 
+    def test_mesh_reconstruct_window_splits_ici(self, monkeypatch):
+        """A mesh reconstruct window attributes the gather's copies to
+        the collective bucket DISTINCTLY from the rebuild compute — the
+        "gather-bound or rebuild-bound?" answer.  A CPU window around
+        the port's ``MeshEcEngine`` on 4 CPU lanes (gather over
+        'shard'): the CPU has no CUDA event, so the test adds, inside
+        each noted mesh_reconstruct interval, what one card reconstruct
+        issues — an upload (HtoD), a gather copy (DtoD) and a
+        ``gf_matmul`` kernel, each with its launch call."""
+        from ceph_tpu_torch.parallel.engine import MeshEcEngine
+
+        sinfo, codec = _sinfo(), _codec()
+        eng = MeshEcEngine(n_devices=4, device="cpu")
+        assert eng.reconstruct_axis(2) == "shard"
+        rng = np.random.default_rng(4)
+        buf = rng.integers(0, 256, size=(16 * sinfo.stripe_width,), dtype=np.uint8)
+        full = eng.encode(sinfo, codec, buf)
+        surv = {s: np.asarray(v) for s, v in full.items() if s != 0}
+        assert eng.decode_concat(sinfo, codec, surv) == buf.tobytes()
+        svc = DeviceTracer()
+        assert svc.start(duration=30.0, label="mesh", device="cpu").get("success")
+        monkeypatch.setattr(profiler(), "trace_sink", svc)
+        for _ in range(3):
+            assert eng.decode_concat(sinfo, codec, surv) == buf.tobytes()
+        session = svc._session
+        with svc._lock:
+            noted = [iv for iv in svc._intervals if iv[2] == "mesh_reconstruct"]
+        assert len(noted) == 3
+        real_parse = device_trace.parse_trace_dir
+        card = (("cudaMemcpyAsync", "gpu_memcpy", "Memcpy HtoD (Pageable -> Device)", 4.0),
+                ("cudaMemcpyAsync", "gpu_memcpy", "Memcpy DtoD (Device -> Device)", 2.0),
+                ("cudaLaunchKernel", "kernel", "void gf_matmul_kernel<8>()", 3.0))
+
+        def parse_with_card_events(log_dir):
+            events, threads = real_parse(log_dir)
+            anchor = next(e for e in events if e.get("name") == ANCHOR_NAME)
+            for i, (t0, t1, _e, _k) in enumerate(noted):
+                ts = float(anchor["ts"]) + (t0 + (t1 - t0) / 2 - session.anchor_pc) / US
+                for j, (call, cat, name, dur) in enumerate(card):
+                    corr = 9000 + 10 * i + j
+                    events.append({"ph": "X", "cat": "cuda_runtime", "name": call,
+                                   "pid": 1, "tid": 2, "ts": ts, "dur": 0.0,
+                                   "args": {"correlation": corr}})
+                    events.append({"ph": "X", "cat": cat, "name": name, "pid": 0,
+                                   "tid": 7, "ts": ts + 5.0 + 10 * j, "dur": dur,
+                                   "args": {"correlation": corr}})
+            return events, threads
+
+        monkeypatch.setattr(device_trace, "parse_trace_dir", parse_with_card_events)
+        bd = svc.stop()
+        assert "unavailable" not in bd, bd
+        rec = bd["engines"].get("mesh_reconstruct")
+        assert rec, bd["engines"].keys()
+        assert rec["collective"] > 0
+        assert rec["fused_op"] > 0
+        assert rec["collective"] != rec["fused_op"]
+        assert rec["collective"] == pytest.approx(3 * 2.0 * US, abs=1e-9)
+        assert rec["fused_op"] == pytest.approx(3 * 3.0 * US, abs=1e-9)
+        # the upload is a host->device copy: dma, not the gather
+        assert rec["dma"] == pytest.approx(3 * 4.0 * US, abs=1e-9)
+
+
+def test_gather_copies_are_collective_only_in_the_mesh_engines():
+    """A device-to-device or peer copy is ``collective`` only when its
+    launch call lies in a mesh_gather / mesh_reconstruct interval; the
+    same copy under another engine, a host<->device copy under a mesh
+    engine, and a copy placed by its own time (no launch call) stay
+    ``dma``."""
+    ivs = [(0.0, 1e-3, "mesh_reconstruct", "r"), (1e-3, 2e-3, "gf_encode", "e"),
+           (2e-3, 3e-3, "mesh_gather", "g")]
+    events = []
+    for i, (t_call, name, linked) in enumerate([
+            (100.0, "Memcpy DtoD (Device -> Device)", True),
+            (200.0, "Memcpy HtoD (Pageable -> Device)", True),
+            (1100.0, "Memcpy DtoD (Device -> Device)", True),
+            (2100.0, "Memcpy PtoP (Device -> Device)", True),
+            (2200.0, "Memcpy DtoD (Device -> Device)", False)]):
+        if linked:
+            events.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync",
+                           "ts": t_call, "dur": 1.0, "args": {"correlation": i}})
+        events.append({"ph": "X", "cat": "gpu_memcpy", "name": name, "ts": t_call + 5.0,
+                       "dur": 10.0 * (i + 1),
+                       "args": {"correlation": i} if linked else {}})
+    s = summarize_events(events, intervals=ivs, anchor_offset=0.0)
+    e = s["engines"]
+    assert e["mesh_reconstruct"]["collective"] == pytest.approx(10 * US, abs=1e-12)
+    assert e["mesh_reconstruct"]["dma"] == pytest.approx(20 * US, abs=1e-12)
+    assert e["gf_encode"]["dma"] == pytest.approx(30 * US, abs=1e-12)
+    assert e["gf_encode"]["collective"] == 0.0
+    assert e["mesh_gather"]["collective"] == pytest.approx(40 * US, abs=1e-12)
+    assert e["mesh_gather"]["dma"] == pytest.approx(50 * US, abs=1e-12)
+    assert s["buckets"]["collective"] == pytest.approx(50 * US, abs=1e-12)
+    assert {(o["name"][:11], o["bucket"]) for o in s["top_ops"]} == {
+        ("Memcpy DtoD", "collective"), ("Memcpy DtoD", "dma"),
+        ("Memcpy HtoD", "dma"), ("Memcpy PtoP", "collective")}
+
+
 # -- the flight recorder and the op tracker -----------------------------------
 
 

@@ -516,12 +516,19 @@ def test_ec_perf_family_matches_reference():
 
 @pytest.mark.parametrize("name", ["mesh_engine", "remote"])
 def test_unported_lanes_refuse(name):
-    """The mesh lane is refused until it is ported (Queue A item 8).
-    The remote lane is ported; it refuses only an object that is not a
-    remote-lane client (tests/test_torch_accel_service.py drives it)."""
-    match = "Queue A item" if name == "mesh_engine" else "remote-lane client"
+    """The mesh and remote lanes are ported; each refuses only an object
+    that is not its engine or client
+    (tests/test_torch_mesh_dispatch.py and
+    tests/test_torch_accel_service.py drive them), and the mesh lane
+    shows in dump() once given an engine."""
+    match = "a mesh engine" if name == "mesh_engine" else "remote-lane client"
     with pytest.raises(ValueError, match=match):
         ECDispatcher(**{name: object()})
+    if name == "mesh_engine":
+        from ceph_tpu_torch.parallel.engine import MeshEcEngine
+
+        assert ECDispatcher(mesh_engine=MeshEcEngine(device="cpu")).dump()[
+            "mesh_lane"] is True
 
 
 # -- QoS pacing and the worker threads ----------------------------------------

@@ -14,11 +14,16 @@
   fault instead of falling back to the scalar walk.
 - The accelerator daemon owns the card: ``AccelDaemon()`` and the
   ``accel`` role of ``tools.daemon`` raise without CUDA unless given the
-  CPU, with a mon (``mon_addr``, ``--monmap``) or an admin socket too,
-  and the option of the daemon that is not ported yet (``osd_ec_mesh``)
-  raises ``NotImplementedError`` instead of being ignored, with or
-  without a mon or a socket.  The ``osd`` role of ``tools.daemon`` raises
-  without CUDA unless given the CPU too, before it makes its store.
+  CPU, with a mon (``mon_addr``, ``--monmap``) or an admin socket too;
+  with ``osd_ec_mesh`` on, with or without a mon or a socket, it builds
+  the mesh lane on CPU lanes when given the CPU, and without CUDA the
+  mesh of the cards raises at its first use.  The ``osd`` role of
+  ``tools.daemon`` raises without CUDA unless given the CPU too, before
+  it makes its store.
+- The mesh engine (``ceph_tpu_torch.parallel``) is among the modules
+  that import with jax and ceph_tpu blocked, and an OSD built with
+  ``osd_ec_mesh`` on serves EC writes and degraded reads through its
+  mesh lane with nothing of them loaded.
 - An external object class file (``cls_<name>.py`` under
   ``osd_class_dir``, importing ``ceph_tpu_torch.cls``) served by the
   port's OSD brings in nothing of ``jax`` or ``ceph_tpu``.
@@ -140,6 +145,9 @@ _SLICE_MODULES = {
     "ceph_tpu_torch.rados.object_cacher", "ceph_tpu_torch.tools.rados_cli",
     "ceph_tpu_torch.tools.ceph_cli", "ceph_tpu_torch.tools.vstart",
     "ceph_tpu_torch.tools.objectstore_tool", "ceph_tpu_torch.tools.monstore_tool",
+    # the multi-device EC engine
+    "ceph_tpu_torch.parallel", "ceph_tpu_torch.parallel.mesh",
+    "ceph_tpu_torch.parallel.distributed", "ceph_tpu_torch.parallel.engine",
 }
 
 # an external class file served by the port's OSD, with jax and ceph_tpu
@@ -173,6 +181,40 @@ _EXTERNAL_CLASS = textwrap.dedent("""
 """)
 
 
+# an OSD with the mesh lane on, with jax and ceph_tpu blocked: an EC write
+# and a degraded read go through the mesh, and nothing of them loads
+_MESH_OSD = textwrap.dedent("""
+    import asyncio, sys
+    sys.meta_path.insert(0, Block())
+    from ceph_tpu_torch.rados import MiniCluster
+
+    async def main():
+        async with MiniCluster(n_osds=4, device="cpu",
+                               config_overrides={"osd_ec_mesh": True}) as cluster:
+            cl = await cluster.client()
+            await cl.create_pool("ec", "erasure")
+            io = cl.io_ctx("ec")
+            await io.write_full("obj", bytes(range(256)) * 16)
+            enc = sum(o.perf.get("ec").get("mesh_encode_calls")
+                      for o in cluster.osds.values())
+            pool = cl.osdmap.lookup_pool("ec")
+            _pg, acting, _p = cl.osdmap.object_to_acting("obj", pool.id)
+            await cluster.kill_osd(acting[0])
+            await cluster.wait_for_osd_down(acting[0])
+            got = await io.read("obj")
+            return (got == bytes(range(256)) * 16, enc,
+                    sum(o.perf.get("ec").get("mesh_decode_calls")
+                        for o in cluster.osds.values()))
+
+    same, enc, dec = asyncio.run(asyncio.wait_for(main(), 60))
+    assert same and enc > 0 and dec > 0, (same, enc, dec)
+    leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not leaked, leaked
+    assert "ceph_tpu_torch.parallel.engine" in sys.modules
+    print("mesh lane served", enc, dec)
+""")
+
+
 def _needs_no_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without CUDA")
@@ -187,6 +229,16 @@ def test_port_imports_without_jax_or_ceph_tpu():
     names = set(out.stdout.split())
     assert len(names) >= 80  # every module of the package
     assert _SLICE_MODULES <= names, _SLICE_MODULES - names
+
+
+def test_an_osd_with_the_mesh_lane_brings_in_no_ceph_tpu():
+    block = _BLOCKED_IMPORT.split("sys.meta_path.insert")[0]
+    out = subprocess.run(
+        [sys.executable, "-c", block + _MESH_OSD], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "mesh lane served" in out.stdout
 
 
 def test_an_external_class_loaded_by_the_port_osd_brings_in_no_ceph_tpu():
@@ -384,15 +436,19 @@ def test_accel_role_serves_on_the_cpu_when_asked():
 
 @pytest.mark.parametrize("what", ["mon_addr", "admin_socket", "osd_ec_mesh"])
 def test_accel_daemon_refuses_what_is_not_ported(what, tmp_path):
-    """``osd_ec_mesh`` is refused.  ``mon_addr`` and ``admin_socket`` are
-    ported: the daemon takes each, and with it still refuses the option
-    that is not ported."""
+    """Every option is ported: the daemon takes ``mon_addr`` and
+    ``admin_socket``, and with each of them, or alone, ``osd_ec_mesh``
+    builds the mesh lane on the CPU lanes of a ``device="cpu"`` daemon.
+    Without CUDA, the mesh of the cards raises at its first use, not at
+    construction."""
     from ceph_tpu_torch.accel import AccelDaemon
     from ceph_tpu_torch.common import Config
+    from ceph_tpu_torch.parallel.engine import MeshEcEngine
 
     if what == "mon_addr":
         acc = AccelDaemon("accel.9", device="cpu", mon_addr="127.0.0.1:1")
         assert acc.mon_addr == "127.0.0.1:1" and acc.device.type == "cpu"
+        assert acc.ec_mesh is None and not acc.dispatch.dump()["mesh_lane"]
         kw = {"mon_addr": ["127.0.0.1:1"],
               "config": Config({"osd_ec_mesh": True}, env="")}
     elif what == "admin_socket":
@@ -400,22 +456,32 @@ def test_accel_daemon_refuses_what_is_not_ported(what, tmp_path):
         acc = AccelDaemon("accel.9", device="cpu",
                           config=Config({what: path}, env=""))
         assert acc.config.admin_socket == path and acc.device.type == "cpu"
+        assert acc.ec_mesh is None
         kw = {"config": Config({what: path, "osd_ec_mesh": True}, env="")}
     else:
         kw = {"config": Config({what: True}, env="")}
-    with pytest.raises(NotImplementedError, match="not supported"):
-        AccelDaemon("accel.9", device="cpu", **kw)
+    acc = AccelDaemon("accel.9", device="cpu", **kw)
+    assert acc.ec_mesh is not None and acc.dispatch.dump()["mesh_lane"]
+    assert acc.ec_mesh.devices == [torch.device("cpu")] * 8
+    if not torch.cuda.is_available():
+        with pytest.raises(DeviceUnavailableError):
+            MeshEcEngine().mesh_for(8)
 
 
 def test_dispatcher_accepts_a_remote_and_still_refuses_a_mesh():
+    """The dispatcher takes a remote-lane client and a mesh engine, and
+    refuses an object that is neither."""
     from ceph_tpu_torch.accel import AccelClient
     from ceph_tpu_torch.msg import AsyncMessenger, Dispatcher
     from ceph_tpu_torch.osd.ec_dispatch import ECDispatcher
+    from ceph_tpu_torch.parallel.engine import MeshEcEngine
 
     client = AccelClient(AsyncMessenger("osd.0", Dispatcher()),
                          addr="127.0.0.1:1", mode="require")
     assert ECDispatcher(remote=client).dump()["remote"]["mode"] == "require"
-    with pytest.raises(ValueError, match="item 8"):
+    assert ECDispatcher(mesh_engine=MeshEcEngine(device="cpu"),
+                        remote=client).dump()["mesh_lane"] is True
+    with pytest.raises(ValueError, match="a mesh engine"):
         ECDispatcher(mesh_engine=object())
 
 

@@ -14,7 +14,8 @@ Besides:
   tail of its log;
 - every OSD child runs the port's daemon with ``--device cpu`` (its
   argv; ``tests/test_torch_isolation.py`` shows the children import
-  nothing of ``jax`` or ``ceph_tpu``);
+  nothing of ``jax`` or ``ceph_tpu``), and ``osd_config``'s
+  ``osd_ec_mesh`` reaches each of them: every OSD serves the mesh lane;
 - the port's ``RadosClient`` serves IO against the reference's
   ``ProcCluster``;
 - four faults of the reference's OSD that a loaded cluster of processes
@@ -245,6 +246,40 @@ class TestProcCluster:
                     assert await io.read(f"k{i}") == bytes([i]) * 2000
 
         run(main())
+
+
+def test_osd_ec_mesh_reaches_every_osd_process(tmp_path, monkeypatch):
+    """``osd_config={"osd_ec_mesh": True}`` reaches each OSD process
+    (``--config osd_ec_mesh=True``): every OSD's ``dump_ec_dispatch``
+    over its admin socket shows the mesh lane, on its 8 CPU lanes, and
+    the EC write is served by it (``mesh_encode_calls``)."""
+    from ceph_tpu_torch.common import admin_command
+
+    monkeypatch.setenv("CEPH_TPU_ARGS", f"--admin_socket {tmp_path}/{{name}}.asok")
+    data = bytes(range(256)) * 40
+
+    async def main():
+        async with proc_cluster(tmp_path, osd_config={"osd_ec_mesh": True}) as pc:
+            cl = await pc.client()
+            try:
+                await cl.create_pool("ec", "erasure")
+                io = cl.io_ctx("ec")
+                await io.write_full("x", data)
+                assert await read_retry(io, "x") == data
+            finally:
+                await cl.shutdown()
+
+            async def ask(i, prefix):
+                return await asyncio.wait_for(
+                    admin_command(str(tmp_path / f"osd.{i}.asok"), prefix), 30)
+
+            return ([await ask(i, "dump_ec_dispatch") for i in range(pc.n_osds)],
+                    [await ask(i, "perf dump") for i in range(pc.n_osds)])
+
+    dispatch, perf = run(main())
+    assert all(d["mesh_lane"] is True for d in dispatch), dispatch
+    assert sum(p["ec"]["mesh_encode_calls"] for p in perf) > 0
+    assert sum(d["totals"]["lanes"]["mesh"]["batches"] for d in dispatch) > 0
 
 
 def test_without_cuda_the_default_raises_at_construction(tmp_path):

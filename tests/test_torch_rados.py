@@ -15,9 +15,9 @@ Clients and clusters of the two packages also cross: the port's client
 against the reference's cluster, and the reference's client against the
 port's.
 
-The port's refusals are checked here too: ``osd_ec_mesh`` (ROADMAP
-Queue A item 8) and ``start_mds`` (item 11c), each raising an error that
-names its item.  A client op's trace id and client reach the port OSD's
+The port's refusal is checked here too: ``start_mds`` (ROADMAP Queue A
+item 11c) raises an error that names its item; ``osd_ec_mesh`` builds
+an OSD with the mesh lane.  A client op's trace id and client reach the port OSD's
 dispatcher flight record.
 
 Every scenario runs under ``asyncio.wait_for`` (``LIMIT_S``).
@@ -557,12 +557,19 @@ def test_client_trace_and_client_reach_the_dispatcher_flight_record(client_pkg):
 
 
 def test_osd_ec_mesh_is_refused():
+    """``osd_ec_mesh`` is no longer refused: the OSD builds the mesh
+    lane, on CPU lanes for ``device="cpu"``, shared with every other
+    OSD of the process on the same slice."""
     from ceph_tpu_torch.common import Config
     from ceph_tpu_torch.osd import OSD
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        OSD(0, "127.0.0.1:1", config=Config({"osd_ec_mesh": True}, env=""),
-            device="cpu")
+    osds = [OSD(i, "127.0.0.1:1", device="cpu",
+                config=Config({"osd_ec_mesh": True}, env=""))
+            for i in range(2)]
+    assert osds[0].ec_mesh is not None and osds[0].ec_mesh is osds[1].ec_mesh
+    assert osds[0].ec_dispatch.dump()["mesh_lane"] is True
+    plain = OSD(2, "127.0.0.1:1", device="cpu")
+    assert plain.ec_mesh is None and not plain.ec_dispatch.dump()["mesh_lane"]
 
 
 def test_start_mds_is_refused():
