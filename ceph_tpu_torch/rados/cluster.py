@@ -14,7 +14,8 @@ device=None)`` hands ``device`` to every OSD and accelerator daemon it
 starts: None is the card (``DeviceUnavailableError`` without CUDA),
 ``"cpu"`` is for tests.  The mons and the client have no card.
 ``start_mds`` raises ``NotImplementedError`` until the MDS is ported
-(ROADMAP Queue A item 11c).
+(ROADMAP Queue A item 11c-3); the RGW gateway (``ceph_tpu_torch.rgw``)
+runs over this cluster's client.
 """
 
 from __future__ import annotations
@@ -349,7 +350,7 @@ class MiniCluster:
     async def start_mds(self, name: str | None = None, config=None, **kw):
         raise NotImplementedError(
             "start_mds is not supported: the MDS waits for ROADMAP Queue A "
-            "item 11c")
+            "item 11c-3")
 
     async def kill_mds(self, name: str) -> None:
         await self.mdss.pop(name).stop()

@@ -18,17 +18,23 @@ Layout math (file_to_extents): for logical offset ``off``:
   objectno  = objectsetno * stripe_count + stripepos
   obj_off   = (stripeno % stripes_per_object) * stripe_unit + off % stripe_unit
 
-Zero-copy data path: the extent table is computed VECTORIZED (one numpy
-pass over all touched stripe units, merged to contiguous runs — the old
-per-unit python loop was O(bytes/stripe_unit) interpreter work per op),
-writes slice borrowed ``memoryview``s of the caller's buffer per extent
-(no per-stripe ``data[a:b]`` bytes copies — the messenger sends views),
-and reads gather every extent directly into ONE preallocated buffer
-(the single accounted copy on the read path,
-``data_path.copied_bytes_striper``).
+The extent table is computed VECTORIZED (one numpy pass over all
+touched stripe units, merged to contiguous runs).  Reads gather every
+extent directly into ONE preallocated buffer (the single accounted copy
+on the read path, ``data_path.copied_bytes_striper``).
 
-Counterpart of ``ceph_tpu/rados/striper.py``, whole: the same layout
-math and backing-object names, over this package's ``IoCtx``.
+Counterpart of ``ceph_tpu/rados/striper.py``: the same layout math,
+backing-object names and size attribute, over this package's ``IoCtx``,
+so a striped object written by either package reads back through the
+other.  One difference, in the op count only: a write or read issues ONE
+RADOS op per backing object and contiguous object range
+(:meth:`StripedLayout.object_runs`), as Ceph's ``Striper::file_to_extents``
+gives one object extent with its buffer extents, where the reference
+issues one op per stripe unit (1024 ops for a 4 MiB object at the
+default layout).  A write whose range covers one stripe unit of an object
+sends a view of the caller's buffer; one that covers more gathers that
+object's units into one buffer (the copy is accounted as
+``data_path.copied_bytes_striper``).  The bytes that land are the same.
 """
 
 from __future__ import annotations
@@ -99,6 +105,27 @@ class StripedLayout:
         buf_off = unit_start[starts] - offset
         return run_obj, run_off, run_len, buf_off
 
+    def object_runs(self, offset: int, length: int) -> list[tuple[int, int, int, list]]:
+        """The extents of [offset, offset+length) grouped into one run a
+        backing object and contiguous object range: ``(objectno,
+        obj_off, length, pieces)``, each piece ``(buf_off, run_off,
+        len)`` placing a slice of the caller's buffer at ``run_off``
+        into the run (Ceph's ObjectExtent with its buffer extents)."""
+        obj, ooff, run, boff = self.extent_table(offset, length)
+        if obj.size == 0:
+            return []
+        order = np.lexsort((ooff, obj))
+        obj, ooff, run, boff = obj[order], ooff[order], run[order], boff[order]
+        brk = np.flatnonzero((obj[1:] != obj[:-1]) | (ooff[1:] != ooff[:-1] + run[:-1]))
+        starts = np.concatenate(([0], brk + 1)).tolist()
+        ends = np.concatenate((brk + 1, [obj.size])).tolist()
+        out = []
+        for a, b in zip(starts, ends):
+            base = int(ooff[a])
+            pieces = [(int(boff[i]), int(ooff[i]) - base, int(run[i])) for i in range(a, b)]
+            out.append((int(obj[a]), base, int(ooff[b - 1] + run[b - 1]) - base, pieces))
+        return out
+
     def extents(self, offset: int, length: int) -> list[tuple[int, int, int]]:
         """(objectno, obj_offset, len) covering [offset, offset+length),
         merged per contiguous run within each object (list form of
@@ -159,23 +186,30 @@ class StripedObject:
         return s
 
     async def write(self, data: bytes, offset: int = 0) -> None:
-        """Write across backing objects; extents land concurrently.
+        """Write across backing objects: one write a backing object and
+        contiguous range, all landing concurrently.
 
-        Per-extent chunks are borrowed VIEWS of ``data`` (no slicing
-        copies — the frame encoder sends them vectored); the buffer must
-        stay unmutated until the write completes."""
+        A run of one piece is a borrowed VIEW of ``data`` (the frame
+        encoder sends it vectored; the buffer must stay unmutated until
+        the write completes); a run of several pieces is gathered into
+        one buffer, the write path's one accounted copy."""
         view = memoryview(data)
         if view.ndim != 1 or view.itemsize != 1:
             view = view.cast("B")
-        obj, ooff, run, boff = self.layout.extent_table(offset, len(view))
         ops = []
-        for i in range(obj.size):
-            chunk = view[int(boff[i]) : int(boff[i]) + int(run[i])]
-            ops.append(
-                self.io.write(
-                    self._oname(int(obj[i])), chunk, offset=int(ooff[i])
-                )
-            )
+        copied = 0
+        for objectno, obj_off, length, pieces in self.layout.object_runs(offset, len(view)):
+            if len(pieces) == 1:
+                b0, _r0, n = pieces[0]
+                chunk = view[b0 : b0 + n]
+            else:
+                chunk = bytearray(length)
+                for b0, r0, n in pieces:
+                    chunk[r0 : r0 + n] = view[b0 : b0 + n]
+                copied += length
+            ops.append(self.io.write(self._oname(objectno), chunk, offset=obj_off))
+        if copied:
+            note_copy("striper", copied)
         if ops:
             await asyncio.gather(*ops)
         old = await self._read_size_attr()
@@ -198,22 +232,22 @@ class StripedObject:
         total = end - offset
         out = bytearray(total)  # zero-filled: holes need no writes
         mv = memoryview(out)
-        obj, ooff, run, boff = self.layout.extent_table(offset, total)
 
-        async def fetch(i: int) -> None:
+        async def fetch(objectno: int, obj_off: int, length: int, pieces: list) -> None:
             try:
-                got = await self.io.read(
-                    self._oname(int(obj[i])), int(ooff[i]), int(run[i]),
-                    copy=False,
-                )
+                got = await self.io.read(self._oname(objectno), obj_off, length, copy=False)
             except RadosError as e:
                 if e.code == -ENOENT:
                     return  # hole: object never written
                 raise
-            b0 = int(boff[i])
-            mv[b0 : b0 + len(got)] = got  # the ONE gather copy
+            got = memoryview(got)
+            for b0, r0, n in pieces:  # the ONE gather copy
+                n = min(n, len(got) - r0)  # a short read leaves zeros
+                if n <= 0:
+                    break
+                mv[b0 : b0 + n] = got[r0 : r0 + n]
 
-        await asyncio.gather(*(fetch(i) for i in range(obj.size)))
+        await asyncio.gather(*(fetch(*run) for run in self.layout.object_runs(offset, total)))
         note_copy("striper", total)
         return out
 

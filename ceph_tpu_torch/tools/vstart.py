@@ -1,11 +1,11 @@
 """vstart: launch a whole dev cluster in one process
 (reference:src/vstart.sh — the developer cluster launcher).
 
-Boots N mons + N OSDs (+ a mgr on request) on loopback, prints the
+Boots N mons + N OSDs (+ mgr, rgw on request) on loopback, prints the
 connection lines every other CLI needs, and serves until Ctrl-C.
 
 Usage:
-  vstart --osds 4 --mons 3 --mgr [--auth] [--device cpu]
+  vstart --osds 4 --mons 3 --mgr --rgw [--auth] [--device cpu]
          [--store-dir DIR] [--crush-hosts 2x2]
   vstart --multiprocess --osds 4 --store-dir DIR   # real daemons
   # then, from other shells:
@@ -20,8 +20,11 @@ daemon and watch the cluster absorb it.
 Counterpart of ``ceph_tpu/tools/vstart.py``.  The OSDs run their erasure
 code on the card: ``--device`` has the daemon's meaning (default the
 CUDA card, which must be present; ``cpu`` for tests), in process and
-with ``--multiprocess``.  ``--mds`` and ``--rgw`` are refused until the
-MDS and the gateway are ported (ROADMAP Queue A item 11c).
+with ``--multiprocess``.  ``--rgw`` serves the S3/Swift gateway in
+process, its ``admin`` user made at start (refused with
+``--multiprocess``, as the reference refuses it); the gateway's admin
+socket, if any, opens its windows on ``--device``.  ``--mds`` is refused
+until the MDS is ported (ROADMAP Queue A item 11c-3).
 """
 
 from __future__ import annotations
@@ -33,8 +36,7 @@ import sys
 from ..rados import MiniCluster
 from .daemon import _arm_term
 
-NOT_PORTED = ("is not supported: the MDS and the gateway wait for ROADMAP "
-              "Queue A item 11c")
+NOT_PORTED = "is not supported: the MDS waits for ROADMAP Queue A item 11c-3"
 
 
 def _parse_hosts(spec: str | None, n_osds: int):
@@ -55,7 +57,7 @@ async def _run_multiprocess(args) -> int:
         raise SystemExit("--multiprocess requires --store-dir (durable stores)")
     unsupported = [
         flag for flag, on in (
-            ("--mgr", args.mgr), ("--auth", args.auth),
+            ("--mgr", args.mgr), ("--rgw", args.rgw), ("--auth", args.auth),
             ("--crush-hosts", args.crush_hosts),
         ) if on
     ]
@@ -112,11 +114,27 @@ async def _run(args) -> int:
         mgr = await cluster.start_mgr()
         await cluster.wait_for_active_mgr()
         print(f"mgr:    {mgr.name} @ {mgr.addr}")
+    rgw_srv = None
+    if args.rgw:
+        from ..rgw import RGWError, RGWStore
+        from ..rgw.http import S3Server
+
+        cl = await cluster.client()
+        store = await RGWStore.create(cl)
+        try:
+            user = await store.create_user("admin", "vstart admin")
+        except RGWError:  # a durable store's admin from an earlier run
+            user = await store.get_user("admin")
+        rgw_srv = S3Server(store, device=args.device)
+        addr = await rgw_srv.start(port=args.rgw_port)
+        print(f"rgw:    http://{addr}  (AWS {user['access_key']}:...)")
     print(f"osds:   {args.osds} up", flush=True)
     stop = _arm_term()
     print("ready — Ctrl-C to stop", flush=True)
     await stop.wait()
     print("stopping...", flush=True)
+    if rgw_srv is not None:
+        await rgw_srv.stop()
     await cluster.stop()
     return 0
 
@@ -128,8 +146,8 @@ def main(argv=None) -> int:
     p.add_argument("--mgr", action="store_true")
     p.add_argument("--mds", action="store_true",
                    help=f"refused: {NOT_PORTED}")
-    p.add_argument("--rgw", action="store_true",
-                   help=f"refused: {NOT_PORTED}")
+    p.add_argument("--rgw", action="store_true")
+    p.add_argument("--rgw-port", type=int, default=0)
     p.add_argument("--auth", action="store_true", help="enable cephx")
     p.add_argument("--multiprocess", action="store_true",
                    help="each daemon is its own OS process (needs "
@@ -146,9 +164,8 @@ def main(argv=None) -> int:
                    help="torch device the OSDs' codecs live on "
                         "(default: the CUDA card; 'cpu' for tests)")
     args = p.parse_args(argv)
-    for flag, on in (("--mds", args.mds), ("--rgw", args.rgw)):
-        if on:
-            p.error(f"{flag} {NOT_PORTED}")
+    if args.mds:
+        p.error(f"--mds {NOT_PORTED}")
     return asyncio.run(_run(args))
 
 

@@ -297,6 +297,24 @@ Phases, each fatal on any mismatch or exception:
    ``gf_matmul`` must launch in (a), (b) and (c).  It prints each step's
    GB/s (host clock) beside phase 6's, the gather copies' device ms and
    the launches.  The phase runs under ``asyncio.wait_for``.
+17. S3 on erasure-coded data pools, with the launch counts set to 0 just
+   before its traffic: a 6-OSD ``MiniCluster`` on the card and two RGW
+   gateways (``S3Server`` on 127.0.0.1): zone a's data pool isa cauchy
+   k=4 m=2 (``gf_matmul``; reed_sol_van's one-shard decode would be the
+   XOR program), zone b's jerasure cauchy_good k=4 m=2 packetsize 4096
+   (``bitmatrix_xor``), profiles set with ``osd erasure-code-profile
+   set``.  Signed SigV2 HTTP: 32 PUTs of 4 MiB into zone a and a
+   multipart upload of 8 parts of 5 MiB, GETs of every object equal to the
+   originals and one ranged GET; a ``ZoneSyncer`` full pass copies zone
+   a's bucket into zone b, and GETs through b's gateway equal the
+   originals; the shards of two data objects a zone in the OSDs' stores
+   equal a CPU codec's encode of their bytes; then the OSD holding data
+   shard 0 of zone a's first backing object is killed, and GETs of every
+   object of both zones equal the originals.  ``gf_matmul`` must launch
+   in the PUTs, ``bitmatrix_xor`` in the sync, and both in the degraded
+   GETs; no OSD serves an op off the card.  It prints each step's GB/s
+   (host clock) beside phase 13's write and reads and each step's
+   launches.  The phase runs under ``asyncio.wait_for``.
 
 Output: the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on its main path, phase 4 or 7, with ``launches_osd_engine``
@@ -307,7 +325,8 @@ from phase 10, ``launches_observability`` from phase 11 and
 phase 13, ``launches_osd_scrub_tier`` from phase 14, and from phase 15
 ``launches_storm``, part (a)'s launches in this process, and
 ``launches_proc_cluster``, the traced OSD process's captured launches,
-beside it, and ``launches_mesh`` from phase 16), and last
+beside it, ``launches_mesh`` from phase 16 and ``launches_rgw`` from
+phase 17), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -3124,10 +3143,12 @@ def cluster_oid(pool: str, i: int) -> str:
     return f"rbd_data.{pool}13.{i:016x}"
 
 
-def run_osd_cluster(dev, rng, root: str | None = None) -> dict:
+def run_osd_cluster(dev, rng, root: str | None = None, figures: dict | None = None) -> dict:
     """Phase 13 (see the module docstring).  ``root`` holds the mon's and
-    the OSDs' stores (a temporary directory when None).  Returns the
-    kernels' launch counts over the phase, counted from one reset."""
+    the OSDs' stores (a temporary directory when None); ``figures``, when
+    given, gets each step's GB/s (phase 17 prints them beside its own).
+    Returns the kernels' launch counts over the phase, counted from one
+    reset."""
     import asyncio
     import shutil
     import tempfile
@@ -3151,6 +3172,7 @@ def run_osd_cluster(dev, rng, root: str | None = None) -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_") if root is None else None
     root = root or tmp
     launches = {}
+    figures = {} if figures is None else figures
 
     def snapshot():
         if dev.type == "cuda":
@@ -3210,9 +3232,10 @@ def run_osd_cluster(dev, rng, root: str | None = None) -> dict:
                 await asyncio.gather(*(read(p, i) for p, i in items))
                 wall = time.perf_counter() - t0
                 launches[what] = {nm: c - since[nm] for nm, c in snapshot().items()}
+                figures[what] = f"{len(items) * size / wall / 1e9:.3f} GB/s"
                 log(f"  {what}: {len(items)} x {size / 2**20:g} MiB, every read == written: "
-                    f"{len(items) * size / wall / 1e9:.3f} GB/s ({wall * 1e3:.1f} ms, host "
-                    f"clock); launches {launches[what]}")
+                    f"{figures[what]} ({wall * 1e3:.1f} ms, host clock); launches "
+                    f"{launches[what]}")
 
             gf_cuda.reset_launches()
             start = snapshot()
@@ -3222,6 +3245,7 @@ def run_osd_cluster(dev, rng, root: str | None = None) -> dict:
             await asyncio.gather(*(write(p, i) for p, i in names))
             wall = time.perf_counter() - t0
             launches["write"] = {nm: c - start[nm] for nm, c in snapshot().items()}
+            figures["write"] = f"{nbytes / wall / 1e9:.3f} GB/s"
             log(f"  write: {CLUSTER_A_OBJECTS} x {size / 2**20:g} MiB to pool A (isa k=8 m=3, "
                 f"stripe unit 4096) and {CLUSTER_B_OBJECTS} to pool B (cauchy_good k=10 m=4, "
                 f"packetsize 4096, chunk 32768) through RadosClient, {CLUSTER_INFLIGHT} in "
@@ -4658,6 +4682,275 @@ def run_mesh(dev, rng, in_process: dict) -> dict:
     return launches["the whole phase"]
 
 
+# -- phase 17: S3 on erasure-coded data pools on the card -------------------------
+
+RGW_OSDS = 6  # k+m of both zones' data pools
+# zone a: ISA k=4 m=2 (gf_matmul); zone b: jerasure cauchy_good k=4 m=2,
+# packetsize 4096 (bitmatrix_xor).  Zone a's technique is ISA's cauchy:
+# reed_sol_van's first parity row is all ones, so its one-shard decode is
+# the XOR program and no gf_matmul, and this phase loses one OSD
+RGW_ZONES = {
+    "a": {"plugin": "isa", "technique": "cauchy", "k": "4", "m": "2"},
+    "b": {"plugin": "jerasure", "technique": "cauchy_good", "k": "4", "m": "2",
+          "packetsize": "4096"},
+}
+RGW_BUCKET = "chip17"
+RGW_OBJECTS = 32
+RGW_OBJECT_SIZE = 4 << 20  # the striper's default object size
+RGW_PARTS = 8
+RGW_PART_SIZE = 5 << 20  # S3's least part size
+RGW_RANGE = (1_000_000, 3_000_000)  # one ranged GET of object 0: offset, length
+RGW_INFLIGHT = 8
+RGW_OP_TIMEOUT_S = 120.0
+RGW_PHASE_LIMIT_S = 300.0
+RGW_DATE = "Thu, 01 Jan 2026 00:00:00 GMT"
+
+
+async def s3_request(addr: str, method: str, path: str, body=b"", headers=None,
+                     creds=None) -> tuple[int, dict, bytes]:
+    """One HTTP/1.1 request to a gateway, signed with AWS SigV2 when
+    ``creds`` (a user record) is given; (status, headers, body)."""
+    import asyncio
+
+    from ceph_tpu_torch.rgw.http import auth_header
+
+    host, port = addr.rsplit(":", 1)
+    reader, writer = await asyncio.open_connection(host, int(port))
+    try:
+        h = {"content-length": str(len(body)), **(headers or {})}
+        if creds is not None:
+            h.setdefault("date", RGW_DATE)
+            h["authorization"] = auth_header(creds["access_key"], creds["secret_key"],
+                                             method, path, h)
+        head = f"{method} {path} HTTP/1.1\r\n" + "".join(
+            f"{k}: {v}\r\n" for k, v in h.items()) + "\r\n"
+        writer.write(head.encode())
+        if len(body):
+            writer.write(body)
+        await writer.drain()
+        status = int((await reader.readline()).decode().split()[1])
+        out = {}
+        while (line := await reader.readline()) not in (b"\r\n", b"\n", b""):
+            k, _, v = line.decode().partition(":")
+            out[k.strip().lower()] = v.strip()
+        n = int(out.get("content-length", 0))
+        payload = await reader.readexactly(n) if n and method != "HEAD" else b""
+        return status, out, payload
+    finally:
+        writer.close()
+
+
+def backing_bytes(data: np.ndarray, objectno: int) -> bytes:
+    """The bytes the striper's default layout puts in backing object
+    ``objectno`` of ``data`` (a whole number of object sets' stripe units,
+    or less than one set)."""
+    from ceph_tpu_torch.rados.striper import StripedLayout
+
+    lay = StripedLayout()
+    su, sc, spo = lay.stripe_unit, lay.stripe_count, lay.stripes_per_object
+    units = data.reshape(-1, su)
+    objset, pos = divmod(objectno, sc)
+    first = objset * sc * spo + pos
+    return units[first:(objset + 1) * sc * spo:sc].tobytes()
+
+
+def run_rgw(dev, rng, cluster_figures: dict) -> dict:
+    """Phase 17 (see the module docstring).  ``cluster_figures`` holds
+    phase 13's GB/s, printed beside this phase's.  Returns the kernels'
+    launch counts over the phase, counted from one reset."""
+    import asyncio
+    import hashlib
+
+    import torch
+
+    from ceph_tpu_torch.models import registry
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.osdmap import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.rados import MiniCluster
+    from ceph_tpu_torch.rgw import RGWStore, ZoneSyncer
+    from ceph_tpu_torch.rgw.http import S3Server
+    from ceph_tpu_torch.store import CollectionId, ObjectId
+
+    objs = {f"obj{i:03d}": rng.integers(0, 256, size=RGW_OBJECT_SIZE, dtype=np.uint8)
+            for i in range(RGW_OBJECTS)}
+    parts = [rng.integers(0, 256, size=RGW_PART_SIZE, dtype=np.uint8)
+             for _ in range(RGW_PARTS)]
+    objs["multipart"] = np.concatenate(parts)
+    total = sum(o.size for o in objs.values())
+    launches = {}
+
+    def snapshot():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return gf_cuda.launch_counts()
+
+    def step(what, since, wall, nbytes, beside="") -> None:
+        launches[what] = {nm: c - since[nm] for nm, c in snapshot().items()}
+        log(f"  {what}: {nbytes / 2**20:g} MiB, {nbytes / wall / 1e9:.3f} GB/s "
+            f"({wall * 1e3:.1f} ms, host clock){beside}; launches {launches[what]}")
+
+    async def main():
+        cluster = MiniCluster(n_osds=RGW_OSDS, device=dev)
+        t0 = time.perf_counter()
+        await cluster.start()
+        gateways = {}
+        device_batches = 0
+        try:
+            cl = await cluster.client(op_timeout=RGW_OP_TIMEOUT_S)
+            stores = {}
+            for zone, profile in RGW_ZONES.items():
+                code, status, _ = await cl.command({
+                    "prefix": "osd erasure-code-profile set", "name": f"rgw_{zone}",
+                    "profile": dict(profile)})
+                if code != 0:
+                    raise AssertionError(f"profile rgw_{zone}: {status}")
+                stores[zone] = await RGWStore.create(cl, data_pool_type="erasure",
+                                                     data_profile=f"rgw_{zone}", zone=zone)
+                gateways[zone] = S3Server(stores[zone], stats_interval=0, device=dev)
+            addrs = {zone: await g.start() for zone, g in gateways.items()}
+            user = await stores["a"].create_user("chip", "phase 17")
+            pools = {zone: cl.osdmap.lookup_pool(f".rgw.buckets.{zone}") for zone in stores}
+            log(f"  cluster: a mon and {RGW_OSDS} OSDs on the card, zones a (isa cauchy k=4 "
+                f"m=2) and b (cauchy_good k=4 m=2, packetsize 4096) with their data pools "
+                f"erasure-coded, gateways at {addrs}, up in {time.perf_counter() - t0:.2f} s")
+            gate = asyncio.Semaphore(RGW_INFLIGHT)
+
+            async def req(zone, method, path, body=b"", headers=None, want=200):
+                async with gate:
+                    st, h, payload = await s3_request(addrs[zone], method, path, body,
+                                                      headers, creds=user)
+                if st != want:
+                    raise AssertionError(f"{method} {path} via zone {zone}: {st} {payload[:200]}")
+                return h, payload
+
+            async def put(key):
+                h, _ = await req("a", "PUT", f"/{RGW_BUCKET}/{key}", objs[key].tobytes())
+                if h["etag"] != hashlib.md5(objs[key].tobytes()).hexdigest():
+                    raise AssertionError(f"PUT {key}: etag {h['etag']}")
+
+            async def get(zone, key):
+                _h, payload = await req(zone, "GET", f"/{RGW_BUCKET}/{key}")
+                if payload != objs[key].tobytes():
+                    raise AssertionError(f"GET {key} via zone {zone}: the bytes differ")
+
+            async def get_all(what, zones, beside=""):
+                since = snapshot()
+                t0 = time.perf_counter()
+                await asyncio.gather(*(get(z, k) for z in zones for k in objs))
+                step(what, since, time.perf_counter() - t0, total * len(zones), beside)
+
+            gf_cuda.reset_launches()
+            start = snapshot()
+
+            # 1. PUTs: 32 objects and a multipart upload of 8 parts into zone a
+            since = snapshot()
+            t0 = time.perf_counter()
+            await req("a", "PUT", f"/{RGW_BUCKET}")
+            await asyncio.gather(*(put(k) for k in objs if k != "multipart"))
+            _h, payload = await req("a", "POST", f"/{RGW_BUCKET}/multipart?uploads")
+            up = json.loads(payload)["uploadId"]
+            etags = await asyncio.gather(*(
+                req("a", "PUT", f"/{RGW_BUCKET}/multipart?uploadId={up}&partNumber={n + 1}",
+                    part.tobytes()) for n, part in enumerate(parts)))
+            _h, payload = await req("a", "POST", f"/{RGW_BUCKET}/multipart?uploadId={up}")
+            md5s = hashlib.md5(b"".join(bytes.fromhex(h["etag"]) for h, _ in etags))
+            if json.loads(payload)["etag"] != f"{md5s.hexdigest()}-{RGW_PARTS}":
+                raise AssertionError(f"multipart etag {json.loads(payload)['etag']}")
+            step("PUT", since, time.perf_counter() - t0, total,
+                 f"; {RGW_OBJECTS} x {RGW_OBJECT_SIZE >> 20} MiB and {RGW_PARTS} parts of "
+                 f"{RGW_PART_SIZE >> 20} MiB, signed SigV2, {RGW_INFLIGHT} in flight (phase 13's "
+                 f"write: {cluster_figures.get('write', 'not run')})")
+
+            # 2. GETs through zone a, and one ranged GET
+            await get_all("GET zone a", ["a"], f" (phase 13's healthy read: "
+                          f"{cluster_figures.get('healthy read', 'not run')})")
+            off, length = RGW_RANGE
+            h, payload = await req("a", "GET", f"/{RGW_BUCKET}/obj000",
+                                   headers={"range": f"bytes={off}-{off + length - 1}"},
+                                   want=206)
+            if payload != objs["obj000"][off:off + length].tobytes():
+                raise AssertionError("the ranged GET differs")
+            log(f"  ranged GET: {h['content-range']} == the original's slice")
+
+            # 3. zone a's bucket synced into zone b, then read through b
+            since = snapshot()
+            t0 = time.perf_counter()
+            res = await ZoneSyncer(stores["a"], stores["b"], "zone-a").sync()
+            if res != {"phase": "full", "applied": len(objs)}:
+                raise AssertionError(f"sync: {res}")
+            step("sync a -> b", since, time.perf_counter() - t0, total,
+                 f" (full sync, {res['applied']} objects read from a and written to b; "
+                 f"phase 13's write: {cluster_figures.get('write', 'not run')})")
+            await get_all("GET zone b", ["b"], f" (phase 13's healthy read: "
+                          f"{cluster_figures.get('healthy read', 'not run')})")
+
+            # 4. the stored shards of two data objects a zone against a CPU
+            # codec's encode of their bytes
+            t1 = time.perf_counter()
+            for zone, profile in RGW_ZONES.items():
+                cpu = registry.instance().factory(profile["plugin"], dict(profile),
+                                                  device="cpu")
+                chunk = cpu.get_chunk_size(pools[zone].stripe_width)
+                sinfo = ec_util.StripeInfo(chunk * cpu.get_data_chunk_count(), chunk)
+                for key in ("obj000", "multipart"):
+                    oid = f"{RGW_BUCKET}/{key}.{0:016x}"
+                    data = backing_bytes(objs[key], 0)
+                    if await cl.io_ctx(pools[zone].name).read(oid) != data:
+                        raise AssertionError(f"{oid} in zone {zone}: the read differs")
+                    want = ec_util.encode_fallback(sinfo, cpu, sinfo.pad_to_stripe(data))
+                    pg, acting, _p = cl.osdmap.object_to_acting(oid, pools[zone].id)
+                    for s, o in enumerate(acting):
+                        if o == CRUSH_ITEM_NONE:
+                            continue
+                        got = np.frombuffer(cluster.stores[o].read(
+                            CollectionId(f"{pg}s{s}"), ObjectId(oid, s)), dtype=np.uint8)
+                        if not np.array_equal(got, want[s]):
+                            raise AssertionError(f"{oid} shard {s} on osd.{o} differs from "
+                                                 f"the CPU codec's encode")
+            log(f"  stores: the shards of 2 data objects a zone (4 MiB each) == a CPU "
+                f"codec's encode from the zone's profile ({time.perf_counter() - t1:.2f} s)")
+
+            # 5. one OSD down: every object of both zones, degraded
+            oid = f"{RGW_BUCKET}/obj000.{0:016x}"
+            _pg, acting, _p = cl.osdmap.object_to_acting(oid, pools["a"].id)
+            victim = acting[0]  # data shard 0 of zone a's first backing object
+            device_batches += osd_off_card(cluster.osds[victim], "phase 17 before its kill")
+            t1 = time.perf_counter()
+            await cluster.kill_osd(victim)
+            await cluster.wait_for_osd_down(victim)
+            log(f"  killed osd.{victim}, marked down in {time.perf_counter() - t1:.2f} s")
+            await get_all("degraded GET, zones a and b", ["a", "b"],
+                          f" (phase 13's degraded read: "
+                          f"{cluster_figures.get('degraded read, 1 OSD down', 'not run')})")
+            if launches["PUT"]["gf_matmul"] == 0:
+                raise AssertionError(f"no gf_matmul encode in the PUTs: {launches['PUT']}")
+            if launches["sync a -> b"]["bitmatrix_xor"] == 0:
+                raise AssertionError(f"no bitmatrix_xor encode in the sync: "
+                                     f"{launches['sync a -> b']}")
+            for name in gf_cuda.EC_KERNELS:
+                if launches["degraded GET, zones a and b"][name] == 0:
+                    raise AssertionError(f"no {name} decode in the degraded GETs")
+
+            # 6. nothing off the card
+            for osd in cluster.osds.values():
+                device_batches += osd_off_card(osd, "phase 17")
+            launches["phase"] = {nm: c - start[nm] for nm, c in snapshot().items()}
+            log(f"  launches in the phase: {launches['phase']}; {device_batches} device-lane "
+                f"launches over the OSDs' dispatchers, no op off the card")
+            if dev.type == "cuda":
+                log(f"  card: {nvidia_smi('name,power.limit')}")
+        finally:
+            for g in gateways.values():
+                await g.stop()
+            for rank in list(cluster.mons):
+                await cluster.kill_mon(rank)
+            await cluster.stop()
+
+    asyncio.run(asyncio.wait_for(main(), RGW_PHASE_LIMIT_S))
+    return launches["phase"]
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "ceph_tpu_torch" / "__init__.py").exists():
@@ -4741,7 +5034,8 @@ def main() -> int:
     store_launches = run_osd_stores(dev, rng)
 
     phase("13. the port's MiniCluster on the card: client EC writes, degraded reads, a backfill")
-    cluster_launches = run_osd_cluster(dev, rng)
+    cluster_figures = {}
+    cluster_launches = run_osd_cluster(dev, rng, figures=cluster_figures)
 
     phase("14. scrub, repair and a cache tier on the port's MiniCluster")
     scrub_tier_launches = run_osd_scrub_tier(dev, rng)
@@ -4752,6 +5046,9 @@ def main() -> int:
 
     phase("16. the mesh lane on the card")
     mesh_launches = run_mesh(dev, rng, osd_figures)
+
+    phase("17. S3 on erasure-coded data pools: the RGW gateway over the port's MiniCluster")
+    rgw_launches = run_rgw(dev, rng, cluster_figures)
     for row in rows:
         row["launches_osd_engine"] = osd_launches[row["name"]]
         row["launches_churn"] = churn_launches[row["name"]]
@@ -4764,6 +5061,7 @@ def main() -> int:
         row["launches_storm"] = storm_launches[row["name"]]
         row["launches_proc_cluster"] = proc_launches[row["name"]]
         row["launches_mesh"] = mesh_launches[row["name"]]
+        row["launches_rgw"] = rgw_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -27,9 +27,10 @@
 - An external object class file (``cls_<name>.py`` under
   ``osd_class_dir``, importing ``ceph_tpu_torch.cls``) served by the
   port's OSD brings in nothing of ``jax`` or ``ceph_tpu``.
-- The daemon processes a ``ProcCluster`` spawns (the mon and the OSDs)
-  import nothing of ``jax`` or ``ceph_tpu``: a ``sitecustomize`` on
-  their path blocks and records any such import.  ``ProcCluster()`` and
+- The daemon processes a ``ProcCluster`` spawns (the mon and the OSDs),
+  and a ``vstart --rgw`` process serving S3, import nothing of ``jax`` or
+  ``ceph_tpu``: a ``sitecustomize`` on their path blocks and records any
+  such import.  ``ProcCluster()`` and
   ``vstart`` (in process and ``--multiprocess``) raise without CUDA
   unless given the CPU.
 """
@@ -148,6 +149,9 @@ _SLICE_MODULES = {
     # the multi-device EC engine
     "ceph_tpu_torch.parallel", "ceph_tpu_torch.parallel.mesh",
     "ceph_tpu_torch.parallel.distributed", "ceph_tpu_torch.parallel.engine",
+    # the RGW gateway and its admin tool
+    "ceph_tpu_torch.rgw", "ceph_tpu_torch.rgw.store", "ceph_tpu_torch.rgw.http",
+    "ceph_tpu_torch.rgw.sync", "ceph_tpu_torch.tools.rgw_admin",
 }
 
 # an external class file served by the port's OSD, with jax and ceph_tpu
@@ -544,6 +548,49 @@ def test_proc_cluster_children_import_no_jax_or_ceph_tpu(tmp_path, monkeypatch):
     lines = log.read_text().splitlines()
     assert not [ln for ln in lines if ln.startswith("blocked")], lines
     assert pids <= {int(ln.split()[1]) for ln in lines if ln.startswith("loaded")}, lines
+
+
+def test_vstart_rgw_child_imports_no_jax_or_ceph_tpu(tmp_path, monkeypatch):
+    """``vstart --rgw --device cpu`` in its own process, with the probe on
+    its path: a signed PUT and GET through its gateway, and no blocked
+    import in that process."""
+    import asyncio
+    import os
+
+    from ceph_tpu_torch.rados import RadosClient
+    from ceph_tpu_torch.rgw import RGWStore
+    from tests.test_torch_rgw import PORT, http
+    from tests.test_torch_tools_cli import _start_vstart, _stop_vstart
+
+    probe = tmp_path / "probe"
+    probe.mkdir()
+    (probe / "sitecustomize.py").write_text(_CHILD_PROBE)
+    log = tmp_path / "probe.log"
+    monkeypatch.setenv("PORT_PROBE_LOG", str(log))
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        p for p in (str(probe), os.environ.get("PYTHONPATH", "")) if p))
+    proc, lines = _start_vstart("--osds", "3", "--rgw", "--device", "cpu")
+    try:
+        addr = lines["rgw"].split()[0].removeprefix("http://")
+
+        async def main():
+            cl = await RadosClient(lines["mon"]).connect()
+            try:
+                user = await RGWStore(cl).get_user("admin")
+            finally:
+                await cl.shutdown()
+            assert (await http(PORT, addr, "PUT", "/iso", creds=user))[0] == 200
+            assert (await http(PORT, addr, "PUT", "/iso/o", body=b"x" * 5000,
+                               creds=user))[0] == 200
+            return await http(PORT, addr, "GET", "/iso/o", creds=user)
+
+        st, _h, body = asyncio.run(asyncio.wait_for(main(), 60))
+        assert st == 200 and body == b"x" * 5000
+    finally:
+        _stop_vstart(proc)
+    probe_lines = log.read_text().splitlines()
+    assert not [ln for ln in probe_lines if ln.startswith("blocked")], probe_lines
+    assert f"loaded {proc.pid}" in probe_lines, probe_lines
 
 
 def test_proc_cluster_and_vstart_raise_without_cuda(tmp_path):

@@ -13,12 +13,19 @@
   ``tests/test_kv_tools.py`` from its objectstore tool on) run over a
   store written by the other package, and both packages' tools print
   the same listings and dumps of it.
+- ``rgw_admin`` (``user create|ls|info|rm``, ``bucket ls|stats``,
+  ``quota set|get`` and an error) prints what the reference's prints, each
+  tool against its own package's cluster built the same way, with the
+  gateway's keys and clock made deterministic as in
+  ``tests/test_torch_rgw.py``.
 - ``vstart`` (``tests/test_vstart.py`` and the monmap case of
   ``tests/test_monmaptool.py``) boots with ``--device cpu`` and serves
   the port's ``rados`` and ``ceph`` in their own processes, in process
-  and with ``--multiprocess``; ``--mds`` and ``--rgw`` are refused
-  naming ROADMAP Queue A item 11c (so are the ``rbd_cli`` steps left
-  out), and without ``--device`` it needs CUDA.
+  and with ``--multiprocess``; with ``--rgw`` it serves S3 (a signed PUT
+  and GET over HTTP) and its ``admin`` user reads the same through the
+  port's and the reference's ``rgw_admin``; ``--mds`` is refused naming
+  ROADMAP Queue A item 11c-3 (so are the ``rbd_cli`` steps left out), and
+  without ``--device`` it needs CUDA.
 
 Every cluster body runs under ``asyncio.timeout`` and every child
 process is waited on with a bound.
@@ -26,6 +33,7 @@ process is waited on with a bound.
 
 import asyncio
 import base64
+import hashlib
 import json
 import os
 import pathlib
@@ -41,29 +49,34 @@ import pytest
 import torch
 
 import ceph_tpu.rados as ref_rados
+import ceph_tpu.rgw as ref_rgw
 from ceph_tpu.mon.store import MonitorDBStore as RefMonitorDBStore
 from ceph_tpu.store.wal import WalStore as RefWalStore
 from ceph_tpu.tools import ceph_cli as ref_ceph_cli
 from ceph_tpu.tools import monstore_tool as ref_monstore_tool
 from ceph_tpu.tools import objectstore_tool as ref_objectstore_tool
 from ceph_tpu.tools import rados_cli as ref_rados_cli
+from ceph_tpu.tools import rgw_admin as ref_rgw_admin
 
 import ceph_tpu_torch.rados as port_rados
+import ceph_tpu_torch.rgw as port_rgw
 from ceph_tpu_torch.device import DeviceUnavailableError
 from ceph_tpu_torch.mon.store import MonitorDBStore
 from ceph_tpu_torch.store.wal import WalStore
-from ceph_tpu_torch.tools import ceph_cli, monstore_tool, objectstore_tool, rados_cli, vstart
+from ceph_tpu_torch.tools import (
+    ceph_cli, monstore_tool, objectstore_tool, rados_cli, rgw_admin, vstart)
+from tests.test_torch_rgw import deterministic, http as rgw_http, PORT as RGW_PORT
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 LIMIT_S = 60.0
 
 REF = types.SimpleNamespace(
     name="ref", rados=ref_rados, rados_cli=ref_rados_cli, ceph_cli=ref_ceph_cli,
-    objectstore_tool=ref_objectstore_tool, monstore_tool=ref_monstore_tool,
+    rgw=ref_rgw, rgw_admin=ref_rgw_admin, objectstore_tool=ref_objectstore_tool, monstore_tool=ref_monstore_tool,
     WalStore=RefWalStore, MonitorDBStore=RefMonitorDBStore, kw={})
 PORT = types.SimpleNamespace(
     name="port", rados=port_rados, rados_cli=rados_cli, ceph_cli=ceph_cli,
-    objectstore_tool=objectstore_tool, monstore_tool=monstore_tool,
+    rgw=port_rgw, rgw_admin=rgw_admin, objectstore_tool=objectstore_tool, monstore_tool=monstore_tool,
     WalStore=WalStore, MonitorDBStore=MonitorDBStore, kw={"device": "cpu"})
 
 
@@ -266,6 +279,60 @@ def test_cli_output_equals_the_references(capsys):
     assert sorted(port[3][2].split()) == ["alpha", "beta", "delta", "gamma"]
 
 
+RGW_ADMIN_STEPS = (
+    (["user", "create", "--uid", "alice", "--display-name", "Alice A"], 0),
+    (["user", "create", "--uid", "bob"], 0),
+    (["user", "ls"], 0),
+    (["user", "info", "--uid", "alice"], 0),
+    (["user", "info", "--uid", "ghost"], 1),
+    (["bucket", "ls"], 0),
+    (["bucket", "ls", "--uid", "alice"], 0),
+    (["bucket", "stats", "--bucket", "photos"], 0),
+    (["quota", "set", "--bucket", "photos", "--max-objects", "10"], 0),
+    (["quota", "set", "--bucket", "photos", "--max-size", "4096"], 0),
+    (["quota", "get", "--bucket", "photos"], 0),
+    (["quota", "get", "--bucket", "nosuch"], 1),
+    (["user", "rm", "--uid", "alice"], 1),  # owns a bucket
+    (["user", "rm", "--uid", "bob"], 0),
+    (["user", "ls"], 0),
+)
+
+
+def _rgw_admin_outputs(P, capsys) -> list:
+    """Each ``rgw_admin`` step against the package's own cluster, with a
+    bucket of two objects made between the users and the buckets."""
+    async def main():
+        out = []
+        async with P.rados.MiniCluster(n_osds=3, **P.kw) as c:
+            mon = c.mon.addr
+            capsys.readouterr()
+            for argv, want_rc in RGW_ADMIN_STEPS:
+                if argv == ["bucket", "ls"]:
+                    s = await P.rgw.RGWStore.create(await c.client())
+                    await s.create_bucket("photos", "alice")
+                    await s.put_object("photos", "a", b"x" * 100)
+                    await s.put_object("photos", "b", b"y" * 28)
+                rc = await in_thread(P.rgw_admin.main, ["-m", mon, *argv])
+                got = capsys.readouterr()
+                assert rc == want_rc, (argv, got.err)
+                out.append((argv, rc, got.out, got.err))
+        return out
+
+    with deterministic():
+        return run(main())
+
+
+def test_rgw_admin_output_equals_the_references(capsys):
+    ref, port = _rgw_admin_outputs(REF, capsys), _rgw_admin_outputs(PORT, capsys)
+    for got, want in zip(port, ref, strict=True):
+        assert got == want, got[0]
+    info = json.loads(port[3][2])
+    assert info["uid"] == "alice" and info["display_name"] == "Alice A"
+    assert json.loads(port[7][2])["num_objects"] == 2
+    assert json.loads(port[10][2]) == {"max_objects": 10, "max_bytes": 4096}
+    assert port[14][2].split() == ["alice"]
+
+
 # -- the offline store tools, across the packages ----------------------------
 
 
@@ -462,12 +529,50 @@ def test_monmap_file_bootstraps_clis(tmp_path):
         _stop_vstart(proc)
 
 
-@pytest.mark.parametrize("flag", ["--mds", "--rgw"])
+@pytest.mark.parametrize("flag", ["--mds"])
 def test_vstart_refuses_what_is_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as e:
         vstart.main(["--osds", "1", "--device", "cpu", flag])
     assert e.value.code == 2
     assert "item 11c" in capsys.readouterr().err
+
+
+def test_vstart_rgw_serves_s3(tmp_path):
+    """``vstart --rgw`` serves the gateway: a signed PUT and GET round-trip
+    over HTTP with the ``admin`` user's keys, and ``rgw_admin user info``
+    prints the same from the port's tool and the reference's.  With
+    ``--multiprocess`` the gateway is refused, as the reference's is."""
+    proc, lines = _start_vstart("--osds", "3", "--rgw", "--device", "cpu")
+    try:
+        mon = lines["mon"]
+        url, _, access = lines["rgw"].partition("  ")
+        addr = url.removeprefix("http://")
+        infos = {}
+        for tool in ("ceph_tpu_torch.tools.rgw_admin", "ceph_tpu.tools.rgw_admin"):
+            r = subprocess.run([sys.executable, "-m", tool, "-m", mon, "user", "info", "--uid",
+                                "admin"], env=_env(), cwd=str(REPO), capture_output=True,
+                               text=True, timeout=60)
+            assert r.returncode == 0, (tool, r.stderr)
+            infos[tool] = r.stdout
+        assert infos["ceph_tpu_torch.tools.rgw_admin"] == infos["ceph_tpu.tools.rgw_admin"]
+        user = json.loads(infos["ceph_tpu.tools.rgw_admin"])
+        assert access == f"(AWS {user['access_key']}:...)"
+
+        async def s3():
+            body = b"served by vstart" * 64
+            assert (await rgw_http(RGW_PORT, addr, "PUT", "/vb", creds=user))[0] == 200
+            st, h, _ = await rgw_http(RGW_PORT, addr, "PUT", "/vb/o", body=body, creds=user)
+            assert st == 200 and h["etag"] == hashlib.md5(body).hexdigest()
+            st, _, got = await rgw_http(RGW_PORT, addr, "GET", "/vb/o", creds=user)
+            assert st == 200 and got == body
+            assert (await rgw_http(RGW_PORT, addr, "GET", "/vb/o"))[0] == 403
+
+        run(s3())
+    finally:
+        _stop_vstart(proc)
+    with pytest.raises(SystemExit, match="does not support --rgw"):
+        vstart.main(["--multiprocess", "--rgw", "--osds", "1", "--device", "cpu",
+                     "--store-dir", str(tmp_path / "s")])
 
 
 def test_vstart_needs_cuda_unless_asked_for_the_cpu(tmp_path):
