@@ -75,9 +75,9 @@ MON_REPORTER_BASE = 1_000_000  # synthetic reporter ids for forwarding mons
 
 INC_CACHE_EPOCHS = 500  # in-memory delta window for subscriber catch-up
 
-# the MDS ino-allocation stripe (``ceph_tpu/mds/daemon.py``'s
-# MAX_MDS_RANKS, copied: the port keeps its own constants): rank r
-# allocates r mod 16, so max_mds may not exceed it
+# the MDS ino-allocation stripe (``mds/daemon.py``'s MAX_MDS_RANKS,
+# copied so that the mon imports nothing of the MDS): rank r allocates
+# r mod 16, so max_mds may not exceed it
 MAX_MDS_RANKS = 16
 
 DEFAULT_EC_PROFILE = {

@@ -12,9 +12,9 @@ not the kept-alive-object simulation.
 Counterpart of ``ceph_tpu/rados/cluster.py``.  ``MiniCluster(...,
 device=None)`` hands ``device`` to every OSD and accelerator daemon it
 starts: None is the card (``DeviceUnavailableError`` without CUDA),
-``"cpu"`` is for tests.  The mons and the client have no card.
-``start_mds`` raises ``NotImplementedError`` until the MDS is ported
-(ROADMAP Queue A item 11c-3); the RGW gateway (``ceph_tpu_torch.rgw``)
+``"cpu"`` is for tests.  The mons, the client and the MDS have no card:
+``start_mds`` starts this package's ``MDSDaemon``, whose data pool's
+erasure code the OSDs run.  The RGW gateway (``ceph_tpu_torch.rgw``)
 runs over this cluster's client.
 """
 
@@ -348,9 +348,15 @@ class MiniCluster:
 
     # -- mds (reference:src/mds; vstart's MDS_COUNT) ------------------------
     async def start_mds(self, name: str | None = None, config=None, **kw):
-        raise NotImplementedError(
-            "start_mds is not supported: the MDS waits for ROADMAP Queue A "
-            "item 11c-3")
+        from ..mds import MDSDaemon
+
+        self._mds_seq += 1
+        name = name or f"mds.{self._mds_seq}"
+        mds = MDSDaemon(name, self.monmap or self.mon.addr,
+                        config=config or self._daemon_config(), **kw)
+        await mds.start()
+        self.mdss[name] = mds
+        return mds
 
     async def kill_mds(self, name: str) -> None:
         await self.mdss.pop(name).stop()

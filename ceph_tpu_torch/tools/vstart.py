@@ -1,16 +1,18 @@
 """vstart: launch a whole dev cluster in one process
 (reference:src/vstart.sh — the developer cluster launcher).
 
-Boots N mons + N OSDs (+ mgr, rgw on request) on loopback, prints the
-connection lines every other CLI needs, and serves until Ctrl-C.
+Boots N mons + N OSDs (+ mgr, mds, rgw on request) on loopback, prints
+the connection lines every other CLI needs, and serves until Ctrl-C.
 
 Usage:
-  vstart --osds 4 --mons 3 --mgr --rgw [--auth] [--device cpu]
+  vstart --osds 4 --mons 3 --mgr --mds --rgw [--auth] [--device cpu]
          [--store-dir DIR] [--crush-hosts 2x2]
   vstart --multiprocess --osds 4 --store-dir DIR   # real daemons
   # then, from other shells:
   rados -m <mon> lspools
   ceph -m <mon> status
+  rbd -m <mon> -p rbd create img --size 1048576
+  cephfs -m <mon> ls /
 
 ``--multiprocess`` boots every mon/OSD as its OWN process with a durable
 store (the reference's run_mon/run_osd tier,
@@ -23,8 +25,10 @@ CUDA card, which must be present; ``cpu`` for tests), in process and
 with ``--multiprocess``.  ``--rgw`` serves the S3/Swift gateway in
 process, its ``admin`` user made at start (refused with
 ``--multiprocess``, as the reference refuses it); the gateway's admin
-socket, if any, opens its windows on ``--device``.  ``--mds`` is refused
-until the MDS is ported (ROADMAP Queue A item 11c-3).
+socket, if any, opens its windows on ``--device``.  ``--mds`` starts an
+MDS in process (refused with ``--multiprocess``, as the reference refuses
+it); the MDS runs no kernel, and on an erasure-coded data pool the OSDs
+encode and rebuild the files' data.
 """
 
 from __future__ import annotations
@@ -35,8 +39,6 @@ import sys
 
 from ..rados import MiniCluster
 from .daemon import _arm_term
-
-NOT_PORTED = "is not supported: the MDS waits for ROADMAP Queue A item 11c-3"
 
 
 def _parse_hosts(spec: str | None, n_osds: int):
@@ -57,8 +59,8 @@ async def _run_multiprocess(args) -> int:
         raise SystemExit("--multiprocess requires --store-dir (durable stores)")
     unsupported = [
         flag for flag, on in (
-            ("--mgr", args.mgr), ("--rgw", args.rgw), ("--auth", args.auth),
-            ("--crush-hosts", args.crush_hosts),
+            ("--mgr", args.mgr), ("--mds", args.mds), ("--rgw", args.rgw),
+            ("--auth", args.auth), ("--crush-hosts", args.crush_hosts),
         ) if on
     ]
     if unsupported:
@@ -114,6 +116,10 @@ async def _run(args) -> int:
         mgr = await cluster.start_mgr()
         await cluster.wait_for_active_mgr()
         print(f"mgr:    {mgr.name} @ {mgr.addr}")
+    if args.mds:
+        mds = await cluster.start_mds()
+        await cluster.wait_for_active_mds()
+        print(f"mds:    {mds.name} @ {mds.addr}")
     rgw_srv = None
     if args.rgw:
         from ..rgw import RGWError, RGWStore
@@ -144,8 +150,7 @@ def main(argv=None) -> int:
     p.add_argument("--osds", type=int, default=3)
     p.add_argument("--mons", type=int, default=1)
     p.add_argument("--mgr", action="store_true")
-    p.add_argument("--mds", action="store_true",
-                   help=f"refused: {NOT_PORTED}")
+    p.add_argument("--mds", action="store_true")
     p.add_argument("--rgw", action="store_true")
     p.add_argument("--rgw-port", type=int, default=0)
     p.add_argument("--auth", action="store_true", help="enable cephx")
@@ -164,8 +169,6 @@ def main(argv=None) -> int:
                    help="torch device the OSDs' codecs live on "
                         "(default: the CUDA card; 'cpu' for tests)")
     args = p.parse_args(argv)
-    if args.mds:
-        p.error(f"--mds {NOT_PORTED}")
     return asyncio.run(_run(args))
 
 

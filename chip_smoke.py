@@ -315,6 +315,27 @@ Phases, each fatal on any mismatch or exception:
    GETs; no OSD serves an op off the card.  It prints each step's GB/s
    (host clock) beside phase 13's write and reads and each step's
    launches.  The phase runs under ``asyncio.wait_for``.
+18. CephFS on an erasure-coded data pool, and RBD, with the launch counts
+   set to 0 just before its traffic: a 6-OSD ``MiniCluster`` on the card,
+   ``mds.a`` active with its data pool isa cauchy k=4 m=2 (set with ``osd
+   erasure-code-profile set``) and ``mds.b`` standing by, a mounted
+   ``CephFSClient``.  32 files of 4 MiB across 4 directories; three
+   unaligned 1 MiB overwrites into one file (read-modify-write in the
+   OSDs, the last past its end), a truncate and a rename across
+   directories; every file reads back equal; the shards of two data
+   objects equal a CPU codec's encode; ``mds.a`` killed, and once ``mds.b``
+   is active the ``readdir`` and ``stat`` of every path equal what they
+   were; the OSD holding data shard 0 of the first file's first object
+   killed, and every file reads back equal.  Then RBD on two replicated
+   pools of the same cluster: a journaled 64 MiB image written in 16 x 4
+   MiB, a snapshot, a clone flattened, a mirror bootstrapped into the
+   second pool and 4 later writes replayed from the journal, and ``rbd
+   export`` of the mirror equal to the source's.  ``gf_matmul`` must
+   launch in the writes, the overwrites and the degraded reads; no OSD
+   serves an op off the card.  It prints each step's GB/s (host clock)
+   beside phase 17's PUT and GETs, the failover's seconds, and each
+   step's launches (the RBD step's should be 0).  The phase runs under
+   ``asyncio.wait_for``.
 
 Output: the card line, a ``{"kernels": [...]}`` line (each kernel's
 ``launches`` on its main path, phase 4 or 7, with ``launches_osd_engine``
@@ -325,8 +346,8 @@ from phase 10, ``launches_observability`` from phase 11 and
 phase 13, ``launches_osd_scrub_tier`` from phase 14, and from phase 15
 ``launches_storm``, part (a)'s launches in this process, and
 ``launches_proc_cluster``, the traced OSD process's captured launches,
-beside it, ``launches_mesh`` from phase 16 and ``launches_rgw`` from
-phase 17), and last
+beside it, ``launches_mesh`` from phase 16, ``launches_rgw`` from
+phase 17 and ``launches_cephfs`` from phase 18), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -4754,10 +4775,11 @@ def backing_bytes(data: np.ndarray, objectno: int) -> bytes:
     return units[first:(objset + 1) * sc * spo:sc].tobytes()
 
 
-def run_rgw(dev, rng, cluster_figures: dict) -> dict:
+def run_rgw(dev, rng, cluster_figures: dict, figures: dict | None = None) -> dict:
     """Phase 17 (see the module docstring).  ``cluster_figures`` holds
-    phase 13's GB/s, printed beside this phase's.  Returns the kernels'
-    launch counts over the phase, counted from one reset."""
+    phase 13's GB/s, printed beside this phase's; ``figures``, if given,
+    gets each step's GB/s (phase 18 prints them beside its own).  Returns
+    the kernels' launch counts over the phase, counted from one reset."""
     import asyncio
     import hashlib
 
@@ -4787,6 +4809,8 @@ def run_rgw(dev, rng, cluster_figures: dict) -> dict:
 
     def step(what, since, wall, nbytes, beside="") -> None:
         launches[what] = {nm: c - since[nm] for nm, c in snapshot().items()}
+        if figures is not None:
+            figures[what] = f"{nbytes / wall / 1e9:.3f} GB/s"
         log(f"  {what}: {nbytes / 2**20:g} MiB, {nbytes / wall / 1e9:.3f} GB/s "
             f"({wall * 1e3:.1f} ms, host clock){beside}; launches {launches[what]}")
 
@@ -4951,6 +4975,290 @@ def run_rgw(dev, rng, cluster_figures: dict) -> dict:
     return launches["phase"]
 
 
+# -- phase 18: CephFS on an erasure-coded data pool, and RBD ---------------------
+
+CEPHFS_OSDS = 6  # k+m of the data pool
+# ISA's cauchy k=4 m=2: gf_matmul in the encodes and in a one-shard decode
+# (reed_sol_van's would be the XOR program)
+CEPHFS_PROFILE = {"plugin": "isa", "technique": "cauchy", "k": "4", "m": "2"}
+CEPHFS_DIRS = 4
+CEPHFS_FILES = 32
+CEPHFS_FILE_SIZE = 4 << 20  # the striper's default object size
+CEPHFS_OVERWRITE = 1 << 20
+CEPHFS_INFLIGHT = 8
+CEPHFS_OP_TIMEOUT_S = 120.0
+CEPHFS_FAILOVER_S = 30.0
+RBD_IMAGE_SIZE = 64 << 20
+RBD_ORDER = 22  # 4 MiB objects
+RBD_WRITE_SIZE = 4 << 20
+RBD_MIRROR_WRITES = 4  # written after the bootstrap, replayed from the journal
+RBD_MIRROR_WRITE_SIZE = 1 << 20
+CEPHFS_PHASE_LIMIT_S = 300.0
+
+
+def cephfs_path(i: int) -> str:
+    return f"/d{i % CEPHFS_DIRS}/f{i:02d}"
+
+
+def run_cephfs_rbd(dev, rng, rgw_figures: dict) -> dict:
+    """Phase 18 (see the module docstring).  ``rgw_figures`` holds phase
+    17's GB/s, printed beside this phase's.  Returns the kernels' launch
+    counts over the phase, counted from one reset."""
+    import asyncio
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.mds import CephFSClient
+    from ceph_tpu_torch.mds.daemon import DATA_POOL
+    from ceph_tpu_torch.models import registry
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.osdmap import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.rados import MiniCluster
+    from ceph_tpu_torch.rbd import RBD, Image, ImageMirrorer
+    from ceph_tpu_torch.store import CollectionId, ObjectId
+    from ceph_tpu_torch.tools import rbd_cli
+
+    files = {cephfs_path(i): rng.integers(0, 256, size=CEPHFS_FILE_SIZE, dtype=np.uint8)
+             for i in range(CEPHFS_FILES)}
+    written = sum(f.size for f in files.values())
+    # three unaligned overwrites into one file (the last runs past its end),
+    # a truncate of another to an unaligned size, a rename across directories
+    over_path, trunc_path, moved_path = (cephfs_path(CEPHFS_FILES - i) for i in (1, 2, 3))
+    over_at = (CEPHFS_FILE_SIZE // 4 + 3, CEPHFS_FILE_SIZE // 2 + 1,
+               CEPHFS_FILE_SIZE - CEPHFS_OVERWRITE // 2 + 5)
+    overwrites = [rng.integers(0, 256, size=CEPHFS_OVERWRITE, dtype=np.uint8) for _ in over_at]
+    trunc_to = CEPHFS_FILE_SIZE * 3 // 4 + 1
+    moved_to = f"/d{(int(moved_path[2]) + 1) % CEPHFS_DIRS}/moved"
+    rbd_writes = [rng.integers(0, 256, size=RBD_WRITE_SIZE, dtype=np.uint8)
+                  for _ in range(RBD_IMAGE_SIZE // RBD_WRITE_SIZE)]
+    rbd_late = [(int(rng.integers(0, RBD_IMAGE_SIZE - RBD_MIRROR_WRITE_SIZE)),
+                 rng.integers(0, 256, size=RBD_MIRROR_WRITE_SIZE, dtype=np.uint8))
+                for _ in range(RBD_MIRROR_WRITES)]
+    launches = {}
+
+    def snapshot():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return gf_cuda.launch_counts()
+
+    def step(what, since, wall, nbytes, beside="") -> None:
+        launches[what] = {nm: c - since[nm] for nm, c in snapshot().items()}
+        log(f"  {what}: {nbytes / 2**20:g} MiB, {nbytes / wall / 1e9:.3f} GB/s "
+            f"({wall * 1e3:.1f} ms, host clock){beside}; launches {launches[what]}")
+
+    async def main():
+        cluster = MiniCluster(n_osds=CEPHFS_OSDS, device=dev)
+        t0 = time.perf_counter()
+        await cluster.start()
+        device_batches = 0
+        try:
+            cl = await cluster.client(op_timeout=CEPHFS_OP_TIMEOUT_S)
+            code, status, _ = await cl.command({
+                "prefix": "osd erasure-code-profile set", "name": "fs_data",
+                "profile": dict(CEPHFS_PROFILE)})
+            if code != 0:
+                raise AssertionError(f"profile fs_data: {status}")
+            for name in ("mds.a", "mds.b"):  # mds.b stands by
+                await cluster.start_mds(name, data_pool_type="erasure", data_profile="fs_data")
+                await cluster.wait_for_active_mds()
+            fs = await CephFSClient.mount(cl)
+            pool = cl.osdmap.lookup_pool(DATA_POOL)
+            if not pool.is_erasure() or cluster.mon.osdmap.mds_name != "mds.a":
+                raise AssertionError(f"{DATA_POOL}: erasure {pool.is_erasure()}, active "
+                                     f"{cluster.mon.osdmap.mds_name}")
+            log(f"  cluster: a mon and {CEPHFS_OSDS} OSDs on the card, mds.a active and mds.b "
+                f"standing by, {DATA_POOL} isa cauchy k=4 m=2, up in "
+                f"{time.perf_counter() - t0:.2f} s")
+            gate = asyncio.Semaphore(CEPHFS_INFLIGHT)
+
+            async def write(path):
+                async with gate:
+                    await fs.write_file(path, files[path].tobytes())
+
+            async def read(path):
+                async with gate:
+                    got = await fs.read_file(path)
+                if got != files[path].tobytes():
+                    raise AssertionError(f"{path}: the bytes differ")
+
+            async def read_all(what, beside=""):
+                since = snapshot()
+                t0 = time.perf_counter()
+                await asyncio.gather(*(read(p) for p in files))
+                step(what, since, time.perf_counter() - t0,
+                     sum(f.size for f in files.values()), beside)
+
+            gf_cuda.reset_launches()
+            start = snapshot()
+
+            # 1. 32 files of 4 MiB across 4 directories
+            since = snapshot()
+            t0 = time.perf_counter()
+            for d in range(CEPHFS_DIRS):
+                await fs.mkdir(f"/d{d}")
+            await asyncio.gather(*(write(p) for p in files))
+            step("write", since, time.perf_counter() - t0, written,
+                 f"; {CEPHFS_FILES} x {CEPHFS_FILE_SIZE / 2**20:g} MiB, {CEPHFS_INFLIGHT} in "
+                 f"flight (phase 17's PUT: {rgw_figures.get('PUT', 'not run')})")
+
+            # 2. three unaligned overwrites (read-modify-write in the OSDs),
+            # a truncate and a rename across directories
+            since = snapshot()
+            t0 = time.perf_counter()
+            f = await fs.open(over_path, create=False)
+            for at, data in zip(over_at, overwrites):
+                await f.write(data.tobytes(), at)
+                grown = np.zeros(max(files[over_path].size, at + data.size), dtype=np.uint8)
+                grown[:files[over_path].size] = files[over_path]
+                grown[at:at + data.size] = data
+                files[over_path] = grown
+            await f.close()
+            f = await fs.open(trunc_path, create=False)
+            await f.truncate(trunc_to)
+            await f.close()
+            files[trunc_path] = files[trunc_path][:trunc_to]
+            await fs.rename(moved_path, moved_to)
+            files[moved_to] = files.pop(moved_path)
+            step("overwrites", since, time.perf_counter() - t0, len(over_at) * CEPHFS_OVERWRITE,
+                 f"; {len(over_at)} x {CEPHFS_OVERWRITE / 2**20:g} MiB at {list(over_at)}, then a "
+                 f"truncate to {trunc_to} and a rename")
+            if launches["write"]["gf_matmul"] == 0 or launches["overwrites"]["gf_matmul"] == 0:
+                raise AssertionError(f"no gf_matmul encode in the writes: {launches}")
+
+            # 3. every file reads back
+            await read_all("read", f" (phase 17's GET: {rgw_figures.get('GET zone a', 'not run')})")
+
+            # 4. the stored shards of two data objects against a CPU codec's encode
+            t1 = time.perf_counter()
+            cpu = registry.instance().factory(CEPHFS_PROFILE["plugin"], dict(CEPHFS_PROFILE),
+                                              device="cpu")
+            chunk = cpu.get_chunk_size(pool.stripe_width)
+            sinfo = ec_util.StripeInfo(chunk * cpu.get_data_chunk_count(), chunk)
+            for path in (cephfs_path(0), cephfs_path(1)):
+                oid = f"data.{(await fs.stat(path))['ino']:x}.{0:016x}"
+                data = backing_bytes(files[path], 0)
+                if await cl.io_ctx(DATA_POOL).read(oid) != data:
+                    raise AssertionError(f"{oid}: the read differs")
+                want = ec_util.encode_fallback(sinfo, cpu, sinfo.pad_to_stripe(data))
+                pg, acting, _p = cl.osdmap.object_to_acting(oid, pool.id)
+                for s, o in enumerate(acting):
+                    if o == CRUSH_ITEM_NONE:
+                        continue
+                    got = np.frombuffer(cluster.stores[o].read(
+                        CollectionId(f"{pg}s{s}"), ObjectId(oid, s)), dtype=np.uint8)
+                    if not np.array_equal(got, want[s]):
+                        raise AssertionError(f"{oid} shard {s} on osd.{o} differs from the "
+                                             f"CPU codec's encode")
+            log(f"  stores: the shards of 2 data objects ({len(data) / 2**20:g} MiB each) "
+                f"== a CPU codec's encode "
+                f"({time.perf_counter() - t1:.2f} s)")
+
+            # 5. the active MDS fails over to the standby: the namespace is the same
+            dirs = [f"/d{d}" for d in range(CEPHFS_DIRS)]
+
+            async def namespace():
+                listing = {d: await fs.readdir(d) for d in ["/", *dirs]}
+                stats = {p: await fs.stat(p) for p in [*dirs, *files]}
+                return listing, stats
+
+            before = await namespace()
+            t1 = time.perf_counter()
+            await cluster.kill_mds("mds.a")
+            async with asyncio.timeout(CEPHFS_FAILOVER_S):
+                while cluster.mon.osdmap.mds_name != "mds.b":
+                    await asyncio.sleep(0.05)
+            await cluster.wait_for_active_mds(CEPHFS_FAILOVER_S)
+            failover_s = time.perf_counter() - t1
+            after = await namespace()
+            if after != before:
+                raise AssertionError("the namespace differs after the failover")
+            log(f"  mds.a killed, mds.b active in {failover_s:.2f} s; readdir of {len(dirs) + 1} "
+                f"directories and stat of {len(dirs) + len(files)} paths equal to before")
+
+            # 6. the OSD with data shard 0 of the first file's first object down
+            oid = f"data.{before[1][cephfs_path(0)]['ino']:x}.{0:016x}"
+            _pg, acting, _p = cl.osdmap.object_to_acting(oid, pool.id)
+            victim = acting[0]
+            device_batches += osd_off_card(cluster.osds[victim], "phase 18 before its kill")
+            t1 = time.perf_counter()
+            await cluster.kill_osd(victim)
+            await cluster.wait_for_osd_down(victim)
+            log(f"  killed osd.{victim}, marked down in {time.perf_counter() - t1:.2f} s")
+            await read_all("degraded read, 1 OSD down",
+                           f" (phase 17's degraded GET: "
+                           f"{rgw_figures.get('degraded GET, zones a and b', 'not run')})")
+            if launches["degraded read, 1 OSD down"]["gf_matmul"] == 0:
+                raise AssertionError("no gf_matmul decode in the degraded reads")
+            for osd in cluster.osds.values():
+                device_batches += osd_off_card(osd, "phase 18's CephFS steps")
+
+            # 7. RBD on two replicated pools: a journaled image, a snapshot, a
+            # clone flattened, a mirror bootstrapped and replayed
+            since = snapshot()
+            t0 = time.perf_counter()
+            for name in ("rbd_src", "rbd_dst"):
+                await cl.create_pool(name, "replicated")
+            sio, dio = cl.io_ctx("rbd_src"), cl.io_ctx("rbd_dst")
+            rbd = RBD(sio)
+            await rbd.create("vol", RBD_IMAGE_SIZE, order=RBD_ORDER, features=["journaling"])
+            img = await Image.open(sio, "vol")
+            for i, data in enumerate(rbd_writes):
+                await img.write(i * RBD_WRITE_SIZE, data.tobytes())
+            image = np.concatenate(rbd_writes)
+            await img.snap_create("s1")
+            await img.snap_protect("s1")
+            await rbd.clone("vol", "s1", "vol-clone")
+            child = await Image.open(sio, "vol-clone")
+            await child.flatten()
+            if child.parent is not None or await child.read(0, RBD_IMAGE_SIZE) != image.tobytes():
+                raise AssertionError("the flattened clone differs from the snapshot")
+            await child.close()
+            mirror = ImageMirrorer(sio, dio, "vol")
+            await mirror.bootstrap()
+            for at, data in rbd_late:
+                await img.write(at, data.tobytes())
+                image[at:at + data.size] = data
+            await img.close()
+            applied = await mirror.sync()
+            if applied < RBD_MIRROR_WRITES:
+                raise AssertionError(f"the mirror replayed {applied} events")
+            with tempfile.TemporaryDirectory() as tmp:
+                exports = {}
+                for pool_name in ("rbd_src", "rbd_dst"):
+                    exports[pool_name] = Path(tmp) / pool_name
+                    rc = await asyncio.get_running_loop().run_in_executor(
+                        None, rbd_cli.main, ["-m", cluster.mon.addr, "-p", pool_name,
+                                             "export", "vol", str(exports[pool_name])])
+                    if rc != 0:
+                        raise AssertionError(f"rbd export of {pool_name}/vol: rc {rc}")
+                src, dst = (exports[n].read_bytes() for n in ("rbd_src", "rbd_dst"))
+            if src != image.tobytes() or dst != src:
+                raise AssertionError("the mirror's export differs from the source's")
+            step("rbd", since, time.perf_counter() - t0, RBD_IMAGE_SIZE,
+                 f"; a journaled {RBD_IMAGE_SIZE / 2**20:g} MiB image written in "
+                 f"{len(rbd_writes)} x {RBD_WRITE_SIZE / 2**20:g} MiB, a snapshot, a clone "
+                 f"flattened, a mirror bootstrapped and {applied} journal events replayed, "
+                 f"both exports equal; replicated pools, so no kernel should launch")
+
+            # 8. nothing off the card
+            for osd in cluster.osds.values():
+                device_batches += osd_off_card(osd, "phase 18")
+            launches["phase"] = {nm: c - start[nm] for nm, c in snapshot().items()}
+            log(f"  launches in the phase: {launches['phase']}; {device_batches} device-lane "
+                f"launches over the OSDs' dispatchers, no op off the card")
+            if dev.type == "cuda":
+                log(f"  card: {nvidia_smi('name,power.limit')}")
+        finally:
+            for rank in list(cluster.mons):
+                await cluster.kill_mon(rank)
+            await cluster.stop()
+
+    asyncio.run(asyncio.wait_for(main(), CEPHFS_PHASE_LIMIT_S))
+    return launches["phase"]
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "ceph_tpu_torch" / "__init__.py").exists():
@@ -5048,7 +5356,11 @@ def main() -> int:
     mesh_launches = run_mesh(dev, rng, osd_figures)
 
     phase("17. S3 on erasure-coded data pools: the RGW gateway over the port's MiniCluster")
-    rgw_launches = run_rgw(dev, rng, cluster_figures)
+    rgw_figures = {}
+    rgw_launches = run_rgw(dev, rng, cluster_figures, rgw_figures)
+
+    phase("18. CephFS on an erasure-coded data pool, and RBD, over the port's MiniCluster")
+    cephfs_launches = run_cephfs_rbd(dev, rng, rgw_figures)
     for row in rows:
         row["launches_osd_engine"] = osd_launches[row["name"]]
         row["launches_churn"] = churn_launches[row["name"]]
@@ -5062,6 +5374,7 @@ def main() -> int:
         row["launches_proc_cluster"] = proc_launches[row["name"]]
         row["launches_mesh"] = mesh_launches[row["name"]]
         row["launches_rgw"] = rgw_launches[row["name"]]
+        row["launches_cephfs"] = cephfs_launches[row["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

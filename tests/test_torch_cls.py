@@ -7,9 +7,9 @@ on the reference's ``MiniCluster`` and on the port's
 (``MiniCluster(device="cpu")``), the same ops in the same order.  Each run
 keeps the reference case's own checks and records its answers (method
 outputs, errnos, the fields the case checks); the two records must be
-equal.  The RGW cases drive the reference's ``RGWStore`` (the gateway is
-not ported) through the reference's client, so on the port's run the
-bucket-index class runs in the port's OSD.  External class files import
+equal.  The RGW cases drive the reference's ``RGWStore`` through the
+reference's client, so on the port's run the bucket-index class runs in
+the port's OSD.  External class files import
 ``ceph_tpu_torch.cls`` for the port's run and ``ceph_tpu.cls`` for the
 reference's.
 

@@ -28,7 +28,7 @@ from ceph_tpu_torch.models.matrix_codec import (
 )
 from ceph_tpu_torch.models.state import codec_from_arrays
 from ceph_tpu_torch.ops.gf_cuda import KernelLaunchError
-from ceph_tpu_torch.tools import ec_benchmark, ec_non_regression
+from ceph_tpu_torch.tools import bench_sweep, ec_benchmark, ec_non_regression
 
 CORPUS = pathlib.Path(__file__).parent / "golden" / "ec_corpus"
 CORPUS_DIRS = sorted(p.name for p in CORPUS.iterdir() if p.is_dir())
@@ -269,3 +269,18 @@ def test_ec_benchmark_cli(capsys):
         ]) == 0
         seconds, kib = capsys.readouterr().out.strip().split("\t")
         assert float(seconds) > 0 and int(kib) == 128
+
+
+def test_bench_sweep_quick_cells(capsys):
+    """``bench_sweep --quick`` (the reference's ``test_tools.py``
+    ``TestSweep``) on the CPU: one line a cell, each with a rate."""
+    bench_sweep.main(["--quick", "--size", "2048", "--workloads", "encode", "--device", "cpu"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    # 2 plugins x 2 techniques x 2 k-values x 1 workload
+    assert len(lines) == 8
+    for cell in lines:
+        assert "error" not in cell, cell
+        assert cell["gbps"] > 0
+    assert [(c["plugin"], c["technique"], c["k"], c["m"]) for c in lines] == [
+        (plugin, tech, k, m) for plugin, techs in bench_sweep.PLUGINS.items()
+        for tech in techs for k, m in ((2, 1), (4, 2))]

@@ -152,6 +152,12 @@ _SLICE_MODULES = {
     # the RGW gateway and its admin tool
     "ceph_tpu_torch.rgw", "ceph_tpu_torch.rgw.store", "ceph_tpu_torch.rgw.http",
     "ceph_tpu_torch.rgw.sync", "ceph_tpu_torch.tools.rgw_admin",
+    # CephFS, RBD and the last tools
+    "ceph_tpu_torch.mds", "ceph_tpu_torch.mds.daemon", "ceph_tpu_torch.mds.fsclient",
+    "ceph_tpu_torch.tools.cephfs_cli", "ceph_tpu_torch.rbd", "ceph_tpu_torch.rbd.image",
+    "ceph_tpu_torch.rbd.journal", "ceph_tpu_torch.rbd.mirror", "ceph_tpu_torch.tools.rbd_cli",
+    "ceph_tpu_torch.utils.isa_oracle", "ceph_tpu_torch.utils.native_crush",
+    "ceph_tpu_torch.tools.bench_sweep",
 }
 
 # an external class file served by the port's OSD, with jax and ceph_tpu

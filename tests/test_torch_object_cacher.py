@@ -1,34 +1,42 @@
 """The port's ``ObjectCacher`` held against the reference's, on the CPU.
 
-Every case of ``tests/test_object_cacher.py`` but ``TestRbdCache`` (it
-waits for ``rbd/``, ROADMAP Queue A item 11c) runs twice: the
+Every case of ``tests/test_object_cacher.py`` runs twice: the
 reference's cacher over the reference's ``MiniCluster``, and the port's
 over the port's (``MiniCluster(device="cpu")``).  Each run checks what
 the reference's case checks and records what it read, the errnos it
 met and the cacher's ``stats()``; the two records must be equal.
+``TestRbdCache`` drives each package's ``rbd.Image`` with its cache on,
+under one seeded image id (``tests/test_torch_rbd.py``).
 """
 
 import asyncio
+import contextlib
 import types
 
 import pytest
 
 import ceph_tpu.rados as ref_rados
+import ceph_tpu.rbd as ref_rbd
+import ceph_tpu.rbd.image as ref_image
 from ceph_tpu.rados.object_cacher import ObjectCacher as RefObjectCacher
 
 import ceph_tpu_torch.rados as port_rados
+import ceph_tpu_torch.rbd as port_rbd
+import ceph_tpu_torch.rbd.image as port_image
 from ceph_tpu_torch.rados import ObjectCacher
+from tests.test_torch_rgw import deterministic, pool_state
 
 LIMIT_S = 30.0
 
-REF = types.SimpleNamespace(name="ref", rados=ref_rados, ObjectCacher=RefObjectCacher, kw={})
+REF = types.SimpleNamespace(name="ref", rados=ref_rados, ObjectCacher=RefObjectCacher,
+                            rbd=ref_rbd, kw={})
 PORT = types.SimpleNamespace(name="port", rados=port_rados, ObjectCacher=ObjectCacher,
-                             kw={"device": "cpu"})
+                             rbd=port_rbd, kw={"device": "cpu"})
 
 
-def twin(scenario):
-    """``scenario(P, cluster, rec)`` on both packages' clusters; the
-    records must match."""
+def twin(scenario, context=contextlib.nullcontext):
+    """``scenario(P, cluster, rec)`` on both packages' clusters, each run
+    inside a fresh ``context()``; the records must match."""
     out = {}
     for P in (REF, PORT):
         async def main(P=P):
@@ -39,7 +47,8 @@ def twin(scenario):
                     await cl.create_pool("p", "replicated", size=3)
                     await scenario(P, cluster, cl, rec)
             return rec
-        out[P.name] = asyncio.run(main())
+        with context():
+            out[P.name] = asyncio.run(main())
     assert out["port"] == out["ref"]
     return out["port"]
 
@@ -154,6 +163,41 @@ class TestCacher:
             rec.append(cache.stats())
 
         twin(scenario)
+
+
+class TestRbdCache:
+    def test_cached_image_io_and_snap_consistency(self):
+        order = 14
+        obj = 1 << order
+
+        async def scenario(P, cluster, cl, rec):
+            await cl.create_pool("rbd", "replicated", size=3)
+            await P.rbd.RBD(cl.io_ctx("rbd")).create("img", 4 * obj, order=order)
+            img = await P.rbd.Image.open(cl.io_ctx("rbd"), "img", cache_bytes=1 << 20)
+            data = bytes(range(256)) * (obj // 128)  # 2 objects
+            await img.write(100, data)
+            assert await img.read(100, len(data)) == data
+            assert img._cache.hits > 0
+            rec.append(img._cache.stats())
+            # a snapshot must capture buffered writes (flush-first)
+            await img.snap_create("s1")
+            await img.write(100, b"\xee" * len(data))
+            img.set_snap("s1")
+            assert await img.read(100, len(data)) == data
+            img.set_snap(None)
+            # rollback drops cached (stale) state
+            await img.snap_rollback("s1")
+            assert await img.read(100, len(data)) == data
+            rec.append(img._cache.stats())
+            await img.close()
+            # durable after close (flush on close)
+            img2 = await P.rbd.Image.open(cl.io_ctx("rbd"), "img")
+            assert await img2.read(100, len(data)) == data
+            await img2.close()
+            rec.append(await pool_state(cluster, ("rbd",)))
+
+        twin(scenario, lambda: deterministic(callers=("ceph_tpu.rbd.", "ceph_tpu_torch.rbd."),
+                                             secret_modules=(ref_image, port_image)))
 
 
 class TestDiscardInvalidate:

@@ -15,9 +15,9 @@ Clients and clusters of the two packages also cross: the port's client
 against the reference's cluster, and the reference's client against the
 port's.
 
-The port's refusal is checked here too: ``start_mds`` (ROADMAP Queue A
-item 11c) raises an error that names its item; ``osd_ec_mesh`` builds
-an OSD with the mesh lane.  A client op's trace id and client reach the port OSD's
+``start_mds`` starts the port's MDS (what the mon refuses of it, it
+refuses as the reference's does); ``osd_ec_mesh`` builds an OSD with the
+mesh lane.  A client op's trace id and client reach the port OSD's
 dispatcher flight record.
 
 Every scenario runs under ``asyncio.wait_for`` (``LIMIT_S``).
@@ -573,12 +573,25 @@ def test_osd_ec_mesh_is_refused():
 
 
 def test_start_mds_is_refused():
-    async def main():
-        async with PORT.rados.MiniCluster(n_osds=1, **PORT.kw) as cluster:
-            with pytest.raises(NotImplementedError, match="item 11c"):
-                await cluster.start_mds()
+    """``start_mds`` is no longer refused: it starts this package's
+    ``MDSDaemon``, which the mon makes active.  What stays refused is what
+    the reference's mon refuses: ``fs set max_mds`` past the MDSs' ino
+    stripe, with the same answer."""
+    from ceph_tpu_torch.mds import MDSDaemon
 
-    run(main())
+    answers = {}
+    for P in (REF, PORT):
+        async def main(P=P):
+            async with P.rados.MiniCluster(n_osds=1, **P.kw) as cluster:
+                mds = await cluster.start_mds()
+                assert await cluster.wait_for_active_mds() == mds.name
+                cl = await cluster.client()
+                return mds, await cl.command({"prefix": "fs set max_mds", "val": 17})
+
+        mds, answers[P.name] = run(main())
+        assert isinstance(mds, MDSDaemon) == (P is PORT)
+    assert answers["port"] == answers["ref"]
+    assert answers["port"][0] != 0
 
 
 def test_osd_and_minicluster_raise_without_cuda_unless_asked_for_the_cpu():

@@ -101,17 +101,19 @@ class _Secrets:
 
 
 @contextlib.contextmanager
-def deterministic(seed: int = SEED):
+def deterministic(seed: int = SEED, callers=GATEWAY_MODULES, secret_modules=None):
     """For the length of one run: one seeded ``token_hex`` in both
-    packages' ``rgw.store``, and ``time.time`` / ``time.time_ns`` that
-    answer a stepping clock to callers in the gateway's modules (the
-    reference's function-local ``import time`` included) and the real
-    clock to everyone else (the OSDs, the mon, the messenger)."""
+    packages' ``rgw.store`` (or in ``secret_modules``), and ``time.time``
+    / ``time.time_ns`` that answer a stepping clock to callers in the
+    gateway's modules (or in the modules named by the prefixes
+    ``callers``; the reference's function-local ``import time``
+    included) and the real clock to everyone else (the OSDs, the mon,
+    the messenger)."""
     clock, secrets = _Clock(), _Secrets(seed)
     real_time, real_time_ns = time.time, time.time_ns
 
     def gateway_caller() -> bool:
-        return sys._getframe(2).f_globals.get("__name__", "").startswith(GATEWAY_MODULES)
+        return sys._getframe(2).f_globals.get("__name__", "").startswith(callers)
 
     def fake_time_ns() -> int:
         return clock.time_ns() if gateway_caller() else real_time_ns()
@@ -120,7 +122,7 @@ def deterministic(seed: int = SEED):
         return clock.time_ns() / 1e9 if gateway_caller() else real_time()
 
     with pytest.MonkeyPatch.context() as mp:
-        for mod in (ref_store, port_store):
+        for mod in (ref_store, port_store) if secret_modules is None else secret_modules:
             mp.setattr(mod, "secrets", secrets)
         mp.setattr(time, "time", fake_time)
         mp.setattr(time, "time_ns", fake_time_ns)
@@ -211,13 +213,14 @@ class Run:
         return self.note(what, ("errno", e.value.code, str(e.value)))
 
 
-async def pool_state(cluster) -> dict:
-    """Every object of the gateway's pools (``.rgw*``), read through the
-    cluster's own client: bytes, xattrs and, in a replicated pool, omap."""
+async def pool_state(cluster, prefixes=(".rgw",)) -> dict:
+    """Every object of the gateway's pools (``.rgw*``, or the pools whose
+    names start with one of ``prefixes``), read through the cluster's own
+    client: bytes, xattrs and, in a replicated pool, omap."""
     cl = await cluster.client()
     out = {}
     for pool in sorted(cl.osdmap.pools.values(), key=lambda p: p.name):
-        if not pool.name.startswith(".rgw"):
+        if not pool.name.startswith(tuple(prefixes)):
             continue
         io = cl.io_ctx(pool.name)
         for oid in await cl.list_objects(pool.name):
@@ -271,16 +274,22 @@ def twin(scenario, n_osds=3, shards=False, cluster_kw=None, packages=(REF, PORT)
         with deterministic():
             out[P.name] = run(main())
     if len(packages) == 2:
-        ref, port = out["ref"], out["port"]
-        assert [w for w, _ in port] == [w for w, _ in ref]
-        for (what, got), (_, want) in zip(port, ref):
-            if isinstance(want, dict):
-                assert sorted(got, key=repr) == sorted(want, key=repr), what
-                for key in want:
-                    assert got[key] == want[key], (what, key)
-            else:
-                assert got == want, what
+        assert_same_records(out["port"], out["ref"])
     return out
+
+
+def assert_same_records(port: list, ref: list) -> None:
+    """Two runs' records, ``(what, value)`` in order, must be equal; a
+    dict value (a pool or store record) is compared key by key, so a
+    difference names its object."""
+    assert [w for w, _ in port] == [w for w, _ in ref]
+    for (what, got), (_, want) in zip(port, ref):
+        if isinstance(want, dict):
+            assert sorted(got, key=repr) == sorted(want, key=repr), what
+            for key in want:
+                assert got[key] == want[key], (what, key)
+        else:
+            assert got == want, what
 
 
 async def _user_store(r, uid="alice", **kw):

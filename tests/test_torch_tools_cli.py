@@ -20,12 +20,15 @@
   ``tests/test_torch_rgw.py``.
 - ``vstart`` (``tests/test_vstart.py`` and the monmap case of
   ``tests/test_monmaptool.py``) boots with ``--device cpu`` and serves
-  the port's ``rados`` and ``ceph`` in their own processes, in process
-  and with ``--multiprocess``; with ``--rgw`` it serves S3 (a signed PUT
-  and GET over HTTP) and its ``admin`` user reads the same through the
-  port's and the reference's ``rgw_admin``; ``--mds`` is refused naming
-  ROADMAP Queue A item 11c-3 (so are the ``rbd_cli`` steps left out), and
-  without ``--device`` it needs CUDA.
+  the port's ``rados``, ``ceph`` and ``rbd`` (a journaled image imported,
+  mirrored into a second pool and exported), in process and with
+  ``--multiprocess``; with ``--rgw`` it serves S3 (a signed PUT and GET
+  over HTTP) and its ``admin`` user reads the same through the port's and
+  the reference's ``rgw_admin``; with ``--mds`` it prints the MDS's line
+  and serves CephFS, and the port's ``cephfs_cli`` prints what the
+  reference's prints (``ls``, ``stat``, ``cat``, ``statfs``); ``--mds`` and
+  ``--rgw`` are refused with ``--multiprocess``, as the reference refuses
+  them, and without ``--device`` it needs CUDA.
 
 Every cluster body runs under ``asyncio.timeout`` and every child
 process is waited on with a bound.
@@ -53,6 +56,7 @@ import ceph_tpu.rgw as ref_rgw
 from ceph_tpu.mon.store import MonitorDBStore as RefMonitorDBStore
 from ceph_tpu.store.wal import WalStore as RefWalStore
 from ceph_tpu.tools import ceph_cli as ref_ceph_cli
+from ceph_tpu.tools import cephfs_cli as ref_cephfs_cli
 from ceph_tpu.tools import monstore_tool as ref_monstore_tool
 from ceph_tpu.tools import objectstore_tool as ref_objectstore_tool
 from ceph_tpu.tools import rados_cli as ref_rados_cli
@@ -64,7 +68,8 @@ from ceph_tpu_torch.device import DeviceUnavailableError
 from ceph_tpu_torch.mon.store import MonitorDBStore
 from ceph_tpu_torch.store.wal import WalStore
 from ceph_tpu_torch.tools import (
-    ceph_cli, monstore_tool, objectstore_tool, rados_cli, rgw_admin, vstart)
+    ceph_cli, cephfs_cli, monstore_tool, objectstore_tool, rados_cli, rbd_cli, rgw_admin,
+    vstart)
 from tests.test_torch_rgw import deterministic, http as rgw_http, PORT as RGW_PORT
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -492,6 +497,44 @@ def test_vstart_serves_clis(tmp_path, capsys):
         assert "obj" in _cli_here(capsys, rados_cli.main, mon, "-p", "p", "ls")
         status = _cli_here(capsys, ceph_cli.main, mon, "status")
         assert "3 up" in status and "mgr" in status
+        # a journaled image and a one-way mirror through the CLI
+        _cli_here(capsys, rados_cli.main, mon, "mkpool", "rbd1", "replicated")
+        _cli_here(capsys, rados_cli.main, mon, "mkpool", "rbd2", "replicated")
+        _cli_here(capsys, rbd_cli.main, mon, "-p", "rbd1", "create", "vol",
+                  "--size", "1048576", "--journaling")
+        img = tmp_path / "img.bin"
+        img.write_bytes(b"M" * 65536)
+        _cli_here(capsys, rbd_cli.main, mon, "-p", "rbd1", "import", str(img), "vol")
+        out = _cli_here(capsys, rbd_cli.main, mon, "-p", "rbd1", "mirror", "bootstrap", "vol",
+                        "--dest-pool", "rbd2")
+        assert "bootstrapped" in out
+        exp = tmp_path / "out.bin"
+        _cli_here(capsys, rbd_cli.main, mon, "-p", "rbd2", "export", "vol", str(exp))
+        assert exp.read_bytes()[:65536] == b"M" * 65536
+    finally:
+        _stop_vstart(proc)
+
+
+def test_vstart_mds_serves_cephfs(tmp_path, capsys):
+    """``vstart --mds`` prints the MDS's line and serves CephFS; the
+    port's ``cephfs_cli`` (in its own process for the writes) and the
+    reference's print the same listings, ``stat``, ``cat`` and ``statfs``."""
+    proc, lines = _start_vstart("--osds", "3", "--mds", "--device", "cpu")
+    try:
+        mon = lines["mon"]
+        assert re.fullmatch(r"mds\.1 @ 127\.0\.0\.1:\d+", lines["mds"]), lines
+        src = tmp_path / "f.txt"
+        src.write_bytes(b"served by vstart's mds\n" * 40)
+        _cli("cephfs_cli", mon, "mkdir", "/docs")
+        _cli("cephfs_cli", mon, "put", str(src), "/docs/f")
+        outs = {}
+        for who, fn in (("port", cephfs_cli.main), ("ref", ref_cephfs_cli.main)):
+            outs[who] = [_cli_here(capsys, fn, mon, *a) for a in (
+                ("ls", "/"), ("ls", "/docs"), ("stat", "/docs/f"), ("cat", "/docs/f"),
+                ("statfs",))]
+        assert outs["port"] == outs["ref"]
+        assert outs["port"][1].split() == ["-", str(src.stat().st_size), "f"]
+        assert outs["port"][3] == src.read_text()
     finally:
         _stop_vstart(proc)
 
@@ -530,11 +573,13 @@ def test_monmap_file_bootstraps_clis(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--mds"])
-def test_vstart_refuses_what_is_not_ported(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        vstart.main(["--osds", "1", "--device", "cpu", flag])
-    assert e.value.code == 2
-    assert "item 11c" in capsys.readouterr().err
+def test_vstart_refuses_what_is_not_ported(flag, tmp_path):
+    """What the reference's vstart refuses, the port's refuses: an MDS
+    with ``--multiprocess``."""
+    with pytest.raises(SystemExit, match=f"does not support {flag}"):
+        vstart.main(["--multiprocess", "--osds", "1", "--device", "cpu", flag,
+                     "--store-dir", str(tmp_path / "s")])
+    assert not (tmp_path / "s").exists()
 
 
 def test_vstart_rgw_serves_s3(tmp_path):
