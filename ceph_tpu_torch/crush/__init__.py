@@ -9,7 +9,9 @@ Counterpart of ``ceph_tpu/crush``:
 - :mod:`.encoding`, :mod:`.compiler` — the JSON wire form and the text
   grammar.
 - :mod:`.mapper_torch`, :mod:`.mapper_torch_hier` — bulk placement over
-  batches of x on torch lanes (the ``crush_straw2`` kernel on the card).
+  batches of x on torch lanes (on the card, the ``crush_choose`` kernel
+  for a single-step rule, the step engine on ``crush_straw2`` for the
+  rest).
 - :mod:`.tester`    — ``CrushTester``, the ``crushtool --test`` engine.
 """
 

@@ -4,7 +4,17 @@ Counterpart of ``ceph_tpu/crush/mapper_jax.py``.  The reference's bulk
 placement simulation is a scalar x-loop — ``crushtool --test`` calls
 ``crush_do_rule`` once per input (reference:src/crush/CrushTester.cc:648,
 mapper reference:src/crush/mapper.c:854).  Here the whole batch of x
-values is one set of [X] lanes on the device: the rjenkins hashes, the
+values is one set of [X] lanes on the device.
+
+On the card, a single-step rule (TAKE -> one CHOOSE[LEAF] -> EMIT, which
+``mapper_torch_hier.fused_rule`` describes) is one launch of the
+``crush_choose`` kernel: one thread a lane runs the scalar mapper's
+whole choose step (reps, tries, descent, collisions, ``is_out``,
+chooseleaf's leaf step).  CPU lanes of such a rule take its plain
+version, :func:`crush_choose_plain`: the step engine's loops.
+
+The step engine (:func:`_step_engine`; chained LRC rules and rules of
+more than 32 slots take it on the card too): the rjenkins hashes, the
 exact straw2 draw (on the card the ``crush_straw2`` kernel, routed by
 ``ops/crush_torch.py``), weight rejection (reference:mapper.c:385), and
 the firstn/indep retry loops (reference:mapper.c:421, :612) as masked
@@ -49,7 +59,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..ops import crush_torch
+from ..ops import crush_cuda, crush_torch
 from ..ops.profiler import profiler
 from .map import (
     CRUSH_BUCKET_STRAW2,
@@ -67,7 +77,11 @@ from .map import (
     CrushMap,
 )
 from .mapper_torch_hier import (
+    FusedRule,
     _hier_engine,
+    choose_firstn_hier,
+    choose_indep_hier,
+    fused_rule,
     int32_weights,
     lanes_of,
     reweight_lanes,
@@ -223,7 +237,55 @@ def _flat_engine(cmap, ruleno, x, result_max, weight):
               numrep, min(numrep, result_max), tries)
 
 
+def crush_choose_plain(T, rule: FusedRule, x, reweight):
+    """Plain version of the ``crush_choose`` kernel: the step engine's
+    loops for ``rule`` (the flat loops for a TAKE of devices choosing
+    devices, the hierarchical ones otherwise) with the routed draw.
+    Returns [X, rule.width] int32 with CRUSH_ITEM_NONE holes."""
+    if rule.depth == 0 and rule.want_type == 0 and not rule.leaf:
+        fn = choose_firstn if rule.firstn else choose_indep
+        return fn(T, x, torch.full_like(x, rule.take_row), reweight, rule.numrep,
+                  rule.width, rule.tries)
+    if rule.firstn:
+        out, out2, _outpos = choose_firstn_hier(
+            T, x, rule.take_row, reweight, numrep=rule.numrep, width=rule.width,
+            tries=rule.tries, recurse_tries=rule.recurse_tries, want_type=rule.want_type,
+            leaf=bool(rule.leaf), vary_r=rule.vary_r, stable=rule.stable)
+    else:
+        out, out2 = choose_indep_hier(
+            T, x, rule.take_row, reweight, numrep=rule.numrep, out_size=rule.width,
+            tries=rule.tries, recurse_tries=rule.recurse_tries, want_type=rule.want_type,
+            leaf=bool(rule.leaf))
+    return out2 if rule.leaf else out
+
+
+def choose(T, rule: FusedRule, x, reweight):
+    """The routed choose step: CPU lanes take :func:`crush_choose_plain`,
+    CUDA lanes the ``crush_choose`` kernel (which raises on what it
+    cannot run)."""
+    if x.device.type == "cpu":
+        return crush_choose_plain(T, rule, x, reweight)
+    return crush_cuda.crush_choose(T, rule, x, reweight)
+
+
 def _engine(cmap, ruleno, x, result_max, weight):
+    """A rule that :func:`fused_rule` takes runs as one routed choose
+    step (on the card, one ``crush_choose`` launch); any other rule the
+    batched path supports takes :func:`_step_engine`.  Decided from the
+    map and rule before any launch."""
+    rule = fused_rule(cmap, ruleno, result_max)
+    if rule is None:
+        return _step_engine(cmap, ruleno, x, result_max, weight)
+    return choose(tables_for(cmap, x.device), rule, x,
+                  reweight_lanes(cmap, weight, x.device))
+
+
+def _step_engine(cmap, ruleno, x, result_max, weight):
+    """The step engine: the choose loops one try (and level) a step,
+    each draw through ``crush_torch.straw2`` (on the card the
+    ``crush_straw2`` kernel).  Chained rules and rules of more than
+    ``gf_cuda.CHOOSE_MAX_WIDTH`` slots take it; the comparisons on the
+    card call it directly for any rule."""
     if _supports_flat(cmap, ruleno):
         return _flat_engine(cmap, ruleno, x, result_max, weight)
     if supports_hier(cmap, ruleno):

@@ -10,8 +10,9 @@ crush_choose_indep; rule interpreter :854).
 Design
 ------
 Per-map tables (:class:`MapTables`: padded int32 [B, I] items, 16.16
-weights, child rows and child types, a [B] size and an id -> row
-lookup) let one draw evaluate straw2 for a *different bucket per lane*:
+weights and their reciprocals, child rows and child types, a [B] size
+and an id -> row lookup) let one draw evaluate straw2 for a *different
+bucket per lane*:
 the routed draw ``crush_torch.straw2`` reads each lane's row itself (on
 the card, the ``crush_straw2`` kernel).  The descent from the TAKE root
 to the target type is a loop bounded by the map's depth; the firstn
@@ -21,6 +22,9 @@ round-global retries (each round's reps drawn at once) are masked
 loops over [X] lanes that stay on the device — the exact control flow
 of the scalar mapper, one mask per branch.  Each loop reads one flag
 back to the host per level or round, to stop when no lane is left.
+These loops are the step engine: on the card, a single-step rule
+(:func:`fused_rule`) runs instead as one ``crush_choose`` launch, and
+they remain its plain version and the chained rules' engine.
 
 The draw is exact, so every lane is bit-identical to ``crush_do_rule``.
 What the reference needs only because its TPU draw is an f32
@@ -46,10 +50,12 @@ Supported shape (``supports_hier``), as the reference's:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from ..ops import crush_torch
+from ..ops import crush_torch, gf_cuda
 from .map import (
     CRUSH_BUCKET_STRAW2,
     CRUSH_ITEM_NONE,
@@ -85,7 +91,9 @@ _CHOOSE_OPS = (
 
 class MapTables:
     """Padded int32 bucket tables on one device (host-built; cached on
-    the map object per device by :func:`tables_for`)."""
+    the map object per device by :func:`tables_for`), with each straw2
+    weight's reciprocal (``crush_torch.recip_table``) beside the weights
+    and the rows' sizes also on the host (``sizes``)."""
 
     def __init__(self, cmap: CrushMap, device: torch.device):
         bids = sorted(cmap.buckets)
@@ -108,6 +116,7 @@ class MapTables:
             if b.alg == CRUSH_BUCKET_STRAW2:
                 weights[bi, :len(b.items)] = b.item_weights
         self.B, self.I = B, I
+        self.sizes = size.tolist()
         # dense bucket-id -> table-row lookup (ids are negative: index
         # -1-id); -1 = not a bucket.  Lets a chained CHOOSE step resolve
         # the previous step's output ids to rows on the device.
@@ -115,33 +124,31 @@ class MapTables:
         id2row = np.full(max_idx + 1, -1, dtype=np.int32)
         for bid in bids:
             id2row[-1 - bid] = self.row_of[bid]
-        self.depth = self._max_depth(cmap, bids)
+        depths: dict[int, int] = {}
+        self.depth = max((_bucket_depth(cmap, b, depths) for b in bids), default=0)
 
         def dev(a):
             return torch.from_numpy(a).to(device)
 
         self.rows = crush_torch.BucketRows(
-            dev(items), dev(weights), dev(child_row), dev(child_type), dev(size),
-            crush_torch.ln_table(device),
+            dev(items), dev(weights), dev(crush_torch.recip_table(weights)), dev(child_row),
+            dev(child_type), dev(size), crush_torch.ln_table(device),
         )
         self.id2row = dev(id2row)
 
-    @staticmethod
-    def _max_depth(cmap: CrushMap, bids) -> int:
-        depth: dict[int, int] = {}
 
-        def d(bid: int) -> int:
-            if bid in depth:
-                return depth[bid]
-            depth[bid] = 0  # cycle guard (supports_hier rejects cycles)
-            best = 0
-            for it in cmap.buckets[bid].items:
-                if it < 0 and it in cmap.buckets:
-                    best = max(best, 1 + d(it))
-            depth[bid] = best
-            return best
-
-        return max((d(b) for b in bids), default=0)
+def _bucket_depth(cmap: CrushMap, bid: int, depth: dict[int, int]) -> int:
+    """Levels of buckets below bucket ``bid`` (0: it holds only
+    devices), memoised in ``depth``."""
+    if bid in depth:
+        return depth[bid]
+    depth[bid] = 0  # cycle guard (supports_hier rejects cycles)
+    best = 0
+    for it in cmap.buckets[bid].items:
+        if it < 0 and it in cmap.buckets:
+            best = max(best, 1 + _bucket_depth(cmap, it, depth))
+    depth[bid] = best
+    return best
 
 
 def _layout(cmap: CrushMap) -> tuple:
@@ -524,13 +531,8 @@ def _hier_engine(cmap, ruleno, x, result_max, weight):
     numrep = choose.arg1 if choose.arg1 > 0 else choose.arg1 + result_max
     if numrep <= 0:
         return None
+    recurse_tries = _recurse_tries(t, firstn, tries, leaf_tries)
     if firstn:
-        if leaf_tries:
-            recurse_tries = leaf_tries
-        elif t.chooseleaf_descend_once:
-            recurse_tries = 1
-        else:
-            recurse_tries = tries
         # firstn result is compact (no holes): the engine writes
         # sequentially per lane, so rows are already left-packed
         out, out2, _outpos = choose_firstn_hier(
@@ -540,9 +542,67 @@ def _hier_engine(cmap, ruleno, x, result_max, weight):
     else:
         out, out2 = choose_indep_hier(
             T, x, root_row, rw, numrep=numrep, out_size=min(numrep, result_max),
-            tries=tries, recurse_tries=leaf_tries or 1, want_type=choose.arg2,
+            tries=tries, recurse_tries=recurse_tries, want_type=choose.arg2,
             leaf=leaf)
     return out2 if leaf else out
+
+
+def _recurse_tries(t, firstn: bool, tries: int, leaf_tries: int) -> int:
+    """The leaf step's tries, as crush_do_rule picks them for a firstn
+    or an indep step (``crush_do_rule``, crush/mapper.py:558-563, 610)
+    under tunables ``t``."""
+    if not firstn:
+        return leaf_tries or 1
+    if leaf_tries:
+        return leaf_tries
+    return 1 if t.chooseleaf_descend_once else tries
+
+
+class FusedRule(NamedTuple):
+    """A single-step rule as the ``crush_choose`` kernel takes it: its
+    ints, in this order, are the kernel's ``Rule``
+    (``csrc/crush_choose.cu``).  ``take_row`` is the TAKE bucket's table
+    row, ``width`` the output's slots (``min(numrep, result_max)``) and
+    ``depth`` the levels of buckets below the TAKE bucket, which bounds
+    a descent."""
+
+    take_row: int
+    firstn: int
+    leaf: int
+    numrep: int
+    width: int
+    tries: int
+    recurse_tries: int
+    want_type: int
+    vary_r: int
+    stable: int
+    depth: int
+
+
+def fused_rule(cmap: CrushMap, ruleno: int, result_max: int) -> FusedRule | None:
+    """The rule as the ``crush_choose`` kernel takes it, or None when the
+    kernel does not take it: a rule :func:`supports_hier` refuses
+    (legacy local tries included), a chain of more than one choose step
+    (the LRC rules, left to the step engine), a degenerate numrep, or
+    more than ``gf_cuda.CHOOSE_MAX_WIDTH`` slots.  Read from the same
+    :func:`_rule_shape` and leaf tries as :func:`_hier_engine`, so the
+    kernel and the step engine run one rule."""
+    if not supports_hier(cmap, ruleno):
+        return None
+    take, chooses, tries, leaf_tries, vary_r, stable = _rule_shape(cmap, ruleno)
+    if len(chooses) != 1:
+        return None
+    choose = chooses[0]
+    firstn = choose.op in (CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSELEAF_FIRSTN)
+    leaf = choose.op in (CRUSH_RULE_CHOOSELEAF_FIRSTN, CRUSH_RULE_CHOOSELEAF_INDEP)
+    numrep = choose.arg1 if choose.arg1 > 0 else choose.arg1 + result_max
+    width = min(numrep, result_max)
+    if numrep <= 0 or not 1 <= width <= gf_cuda.CHOOSE_MAX_WIDTH:
+        return None
+    return FusedRule(
+        sorted(cmap.buckets).index(take), int(firstn), int(leaf), numrep, width, tries,
+        _recurse_tries(cmap.tunables, firstn, tries, leaf_tries), choose.arg2, vary_r,
+        stable, _bucket_depth(cmap, take, {}))
 
 
 def _chain_engine(T, x, rw, root_row, chooses, tries, leaf_tries, result_max):

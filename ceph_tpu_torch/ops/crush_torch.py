@@ -14,7 +14,9 @@ the draw ``ln / w`` truncated toward zero when ``w > 0``, else S64_MIN;
 the first maximum wins.  The reference approximates the draw in f32 on
 the TPU (no fast vector gather for the ln tables) and re-runs the lanes
 it flags on the host; here the ln tables are gathered exactly, so there
-are no flags and no host re-run.
+are no flags and no host re-run.  The kernels divide by each weight's
+reciprocal (:func:`recip_table`, :func:`div_by_recip_plain`); the plain
+draw keeps ``//`` as the definition.
 
 Routing (:func:`straw2`): a tensor on the CPU takes the plain version
 :func:`straw2_plain`; a tensor on CUDA takes the Hopper kernel
@@ -27,6 +29,7 @@ from __future__ import annotations
 import threading
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..crush import ln_tables
@@ -38,6 +41,8 @@ from . import crush_cuda
 
 LANE = torch.int32
 S64_MIN = -(1 << 63)
+_U64_MAX = (1 << 64) - 1
+_M32 = 0xFFFFFFFF
 _RH_LH = len(ln_tables.RH_LH_TBL)
 # int64 elements of one [lanes, items] intermediate of the plain draw;
 # larger batches go through in chunks of lanes
@@ -49,12 +54,15 @@ _ln_lock = threading.Lock()
 
 class BucketRows(NamedTuple):
     """A map's buckets as padded int32 rows on one device, the tables
-    the straw2 draw reads: ``items``, ``weights`` (16.16), ``child_row``
-    (-1 for a device) and ``child_type`` (0 for a device), each [B, I];
-    ``size`` [B]; ``ln`` the int64 ln tables of :func:`ln_table`."""
+    the straw2 draw reads: ``items``, ``weights`` (16.16), ``recip`` (the
+    weights' reciprocals of :func:`recip_table`, uint64 bits in int64),
+    ``child_row`` (-1 for a device) and ``child_type`` (0 for a device),
+    each [B, I]; ``size`` [B]; ``ln`` the int64 ln tables of
+    :func:`ln_table`."""
 
     items: torch.Tensor
     weights: torch.Tensor
+    recip: torch.Tensor
     child_row: torch.Tensor
     child_type: torch.Tensor
     size: torch.Tensor
@@ -74,6 +82,42 @@ def ln_table(device) -> torch.Tensor:
                                  dtype=torch.int64, device=device)
                 _ln_cache[device] = t
     return t
+
+
+def recip_table(weights) -> np.ndarray:
+    """Each weight's reciprocal ``floor((2^64 - 1) / w)`` as uint64 bits
+    in int64 (0 where ``w`` is 0), for weights in [0, 2^31): the table the
+    kernels divide by (``csrc/crush_draw.cuh``), made once per map."""
+    w = np.asarray(weights, dtype=np.uint64)
+    recip = np.where(w > 0, np.uint64(_U64_MAX) // np.maximum(w, np.uint64(1)), np.uint64(0))
+    return recip.astype(np.uint64).view(np.int64)
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor):
+    """``a * b`` for int64 ``a``, ``b`` in [0, 2^32): (its high 32 bits,
+    its low 32 bits), exact in int64 by a 16-bit split of ``a``."""
+    lo = (a & 0xFFFF) * b                       # < 2^48
+    hi = (a >> 16) * b + (lo >> 16)             # < 2^48 + 2^32
+    return hi >> 16, ((hi & 0xFFFF) << 16) | (lo & 0xFFFF)
+
+
+def div_by_recip_plain(n: torch.Tensor, w: torch.Tensor, recip: torch.Tensor) -> torch.Tensor:
+    """``n // w`` as the kernels compute it, step by step in int64: ``q``
+    the high 64 bits of the 128-bit product ``n * recip`` (from 32-bit
+    limbs, as ``__umul64hi``), then one correction ``q += n - q*w >= w``.
+    For n in [0, 2^48], w in [1, 2^31) and ``recip`` from
+    :func:`recip_table` (uint64 bits in int64); the proof that one
+    correction is enough is in ``csrc/crush_draw.cuh``."""
+    n, w, recip = (torch.as_tensor(t, dtype=torch.int64) for t in (n, w, recip))
+    a0, a1 = n & _M32, (n >> 32) & _M32
+    b0, b1 = recip & _M32, (recip >> 32) & _M32
+    h00, _ = _mul32(a0, b0)
+    h01, l01 = _mul32(a0, b1)
+    h10, l10 = _mul32(a1, b0)
+    h11, l11 = _mul32(a1, b1)
+    mid = h00 + l01 + l10                       # the product's bits 32..63, and carries
+    q = ((h11 << 32) | l11) + h01 + h10 + (mid >> 32)
+    return q + (n - q * w >= w).to(torch.int64)
 
 
 def crush_ln(u: torch.Tensor, table: torch.Tensor | None = None) -> torch.Tensor:

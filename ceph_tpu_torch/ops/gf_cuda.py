@@ -1,7 +1,7 @@
 """The port's Hopper kernels: build, binding, launches; and the GF region
 kernels' wrappers.
 
-Counterpart of ``ceph_tpu/ops/gf_pallas.py``.  Three kernels, written in
+Counterpart of ``ceph_tpu/ops/gf_pallas.py``.  Four kernels, written in
 CUDA C++ under ``ceph_tpu_torch/csrc/``:
 
 - ``gf_matmul`` (``csrc/gf_matmul.cu``) replaces
@@ -10,8 +10,11 @@ CUDA C++ under ``ceph_tpu_torch/csrc/``:
 - ``bitmatrix_xor`` (``csrc/bitmatrix_xor.cu``) replaces
   ``make_bitmatrix_matmul_pallas``: packet XOR over a GF(2) bit-matrix;
 - ``crush_straw2`` (``csrc/crush_straw2.cu``) replaces the straw2 draw
-  of the reference's CRUSH XLA programs; its wrapper is in
-  ``crush_cuda``, its build, library and launch count here.
+  of the reference's CRUSH XLA programs, and ``crush_choose``
+  (``csrc/crush_choose.cu``) their whole choose step of a single-step
+  rule, one lane per thread; both draw through ``csrc/crush_draw.cuh``.
+  Their wrappers are in ``crush_cuda``, their builds, libraries and
+  launch counts here.
 
 Unlike the Pallas kernels, which unroll the matrix at trace time, the
 matrix is a runtime argument: each library is built once, and a matrix
@@ -56,10 +59,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
 SOURCES = {"gf_matmul": "gf_matmul.cu", "bitmatrix_xor": "bitmatrix_xor.cu",
-           "crush_straw2": "crush_straw2.cu"}
+           "crush_straw2": "crush_straw2.cu", "crush_choose": "crush_choose.cu"}
 # the kernels of the erasure-code path (the codecs and the OSD engine)
 EC_KERNELS = ("gf_matmul", "bitmatrix_xor")
-HEADERS = ("async_copy.cuh",)
+HEADERS = ("async_copy.cuh", "crush_draw.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -84,9 +87,13 @@ BITMATRIX_TILES = (8, 16, 32)
 # into chunks
 BM_PLAN_ROWS = 512
 BM_PLAN_WORDS = 2 * BM_PLAN_ROWS
-# crush_straw2's ln tables, in step with kLnEntries of csrc/crush_straw2.cu:
-# RH_LH_TBL (258 int64) then LL_TBL (256)
+# the CRUSH kernels' ln tables, in step with kLnEntries of
+# csrc/crush_draw.cuh: RH_LH_TBL (258 int64) then LL_TBL (256)
 LN_ENTRIES = 514
+# crush_choose's slots a lane (kMaxWidth of csrc/crush_choose.cu) and its
+# rule's ints (kRuleInts)
+CHOOSE_MAX_WIDTH = 32
+CHOOSE_RULE_INTS = 11
 
 # launches per kernel since the last reset_launches()
 launches = {name: 0 for name in SOURCES}
@@ -100,10 +107,16 @@ _ARGTYPES = {
     # in (row 0), out (the tile's first row), plan (host bytes), used
     # input rows, output rows, mt, n4, accumulate, stream
     "bitmatrix_xor": [_P, _P, _P, _I, _I, _I, _N, _I, _P],
-    # x, rows, r (int32 lanes), items, weights, child_row, child_type
-    # ([B, I] int32), size ([B] int32), ln tables (int64), B, I, lanes,
-    # out (int32 [3, lanes]), empty (bool [lanes]), stream
-    "crush_straw2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _N, _P, _P, _P],
+    # x, rows, r (int32 lanes), items, weights ([B, I] int32), recip
+    # ([B, I] uint64), child_row, child_type ([B, I] int32), size ([B]
+    # int32), ln tables (int64), B, I, lanes, out (int32 [3, lanes]),
+    # empty (bool [lanes]), stream
+    "crush_straw2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _N, _P, _P, _P],
+    # x (int32 lanes), items, weights, recip, child_row, child_type, size,
+    # the take row's size, ln tables, reweight (int32), its length, I,
+    # lanes, rule (host ints), out (int32 [lanes, width]), draws (int64
+    # [1]), stream
+    "crush_choose": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _N, _P, _P, _P, _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -207,6 +220,11 @@ def _lib(name: str) -> ctypes.CDLL:
                 raise KernelBuildError("bitmatrix_xor.cu's Plan differs from BM_PLAN_ROWS")
             if name == "crush_straw2" and lib.crush_straw2_ln_entries() != LN_ENTRIES:
                 raise KernelBuildError("crush_straw2.cu's ln tables differ from LN_ENTRIES")
+            if name == "crush_choose" and (
+                    lib.crush_choose_max_width() != CHOOSE_MAX_WIDTH
+                    or lib.crush_choose_rule_ints() != CHOOSE_RULE_INTS):
+                raise KernelBuildError("crush_choose.cu's slots or rule differ from "
+                                       "CHOOSE_MAX_WIDTH / CHOOSE_RULE_INTS")
             _LIBS[name] = lib
     return _LIBS[name]
 

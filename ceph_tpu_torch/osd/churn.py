@@ -1,7 +1,7 @@
 """ChurnPlanner: device-planned cluster churn at thousands-of-OSDs scale.
 
 The port's own copy of ``ceph_tpu/osd/churn.py``.  The batched CRUSH
-mapper (``crush/mapper_torch``, the ``crush_straw2`` kernel on the
+mapper (``crush/mapper_torch``, the ``crush_choose`` kernel on the
 card) is the engine of churn *planning*: generate a large synthetic
 cluster map (1k-10k OSDs under a multi-host crush tree), compute the
 FULL pre- and post-churn PG->OSD mapping in one batched device pass per

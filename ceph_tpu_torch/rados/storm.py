@@ -25,7 +25,8 @@ invariants that make churn survivable:
 Counterpart of ``ceph_tpu/rados/storm.py``.  The device plan runs on an
 explicit device: ``StormDriver(..., device=)`` when given, else the
 cluster's own (``MiniCluster.device``, ``ProcCluster.device``); on the
-card it launches the ``crush_straw2`` kernel.  The map snapshots come
+card it launches the ``crush_choose`` kernel (``crush_straw2`` for a
+pool rule that kernel does not take).  The map snapshots come
 from the cluster's in-process mon when it has one, else from the
 client's map subscription (a ``ProcCluster``'s mon lives in another
 process).

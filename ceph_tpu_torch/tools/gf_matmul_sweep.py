@@ -1,5 +1,5 @@
-"""Time, tune and inspect the region kernels (and ``crush_straw2``'s SASS)
-on one CUDA card.
+"""Time, tune and inspect the region kernels (and the CRUSH kernels) on
+one CUDA card.
 
 Run from the root of the repository on a machine with a card and
 ``nvcc``::
@@ -10,7 +10,8 @@ Run from the root of the repository on a machine with a card and
     python3 -m ceph_tpu_torch.tools.gf_matmul_sweep [--kernel K] --sass OUT_DIR [--mt N]
 
 ``--kernel`` picks ``gf_matmul`` (the default) or ``bitmatrix_xor``;
-``crush_straw2`` takes only ``--sass``.
+``crush_straw2`` takes ``--time``, ``--compare`` and ``--sass``,
+``crush_choose`` only ``--sass``.
 
 ``--time`` checks the kernel's public wrapper bit-exact against the
 plain version and times it through that wrapper (CUDA events, median
@@ -28,14 +29,20 @@ zero columns) and its four-erasure one ([32, 80]) over 262,144 lanes
 a row (1 MiB), a [32, 80] bit-matrix that gives each input row to one
 output (80 set bits against cauchy_good's 888: the ring and the stores
 with little XOR work) over the same lanes, and the encode over 4096
-lanes.
+lanes.  ``crush_straw2``: checked bit-exact against ``straw2_plain`` and
+timed on the row of ``CrushMap.flat(64)`` (the package's own tables)
+over 1,000,000 lanes with random r, 64M draws.
 
 ``--compare TREE`` runs ``--time`` in four processes, in turns: the
 package in TREE (for example an earlier commit unpacked with
 ``git archive``), this one, this one, TREE.  Only the wrappers'
 signatures ``gf_table(matrix, w, device)``, ``gf_matmul(table,
 lanes)``, ``bitmatrix_table(bitmatrix, device)`` and
-``bitmatrix_xor(table, lanes)`` are assumed of TREE.
+``bitmatrix_xor(table, lanes)`` are assumed of TREE; for ``crush_straw2``,
+``mapper_torch_hier.tables_for(cmap, device).rows``,
+``crush_cuda.crush_straw2(rows, x, rows_of_lanes, r)`` and
+``crush_torch.straw2_plain`` (every tree since the CRUSH slice), so the
+draw of an earlier design is timed beside this one.
 
 ``--sweep`` builds the kernel's source once per variant of its tuning
 constants (written into copies of the source, all ``nvcc`` processes
@@ -49,8 +56,9 @@ instantiation: the w=8 kernel of an output tile of ``--mt`` (default 3,
 ISA's RS(8,3)) for ``gf_matmul``, the output tile of ``--mt`` (default
 32, cauchy_good k=10 m=4) for ``bitmatrix_xor``, the one kernel for
 ``crush_straw2`` (the dump's addresses locate a draw's path: the item
-loop, the normalisation, the inline divide and the 64-bit divide's
-subroutine, which ``chip_smoke.py``'s ``INSTRUCTIONS_PER_DRAW`` counts).
+loop and its normalisation branch, which ``chip_smoke.py``'s
+``INSTRUCTIONS_PER_DRAW`` counts; ``CALL`` opcodes show a divide
+subroutine) and for ``crush_choose``.
 With
 ``PYTHONPATH=TREE python3 ceph_tpu_torch/tools/gf_matmul_sweep.py``
 every mode runs on TREE's package instead.
@@ -169,8 +177,9 @@ KERNELS = {
          (512, 8, 8, 4, 3)],
         "bitmatrix_xor_kernelILi{mt}E", 32),
 }
-# kernels that only --sass takes: name -> the kernel's symbol
-SASS_ONLY = {"crush_straw2": "crush_straw2_kernel"}
+# the CRUSH kernels, which --sass takes (name -> the kernel's symbol);
+# crush_straw2 also takes --time and --compare (time_straw2)
+CRUSH_SYMBOLS = {"crush_straw2": "crush_straw2_kernel", "crush_choose": "crush_choose_kernel"}
 
 
 def _time(fn, reps: int, batch: int = 20) -> float:
@@ -229,12 +238,38 @@ def time_package(kernel: Kernel, reps: int) -> None:
           flush=True)
 
 
-def compare(kernel: Kernel, tree: Path, reps: int) -> None:
+def time_straw2(reps: int) -> None:
+    """``crush_straw2`` on flat_64's row over 1,000,000 lanes: checked
+    against ``straw2_plain``, then timed in batches of 20 and one launch
+    a sample."""
+    from ceph_tpu_torch.crush.map import CrushMap
+    from ceph_tpu_torch.crush.mapper_torch_hier import tables_for
+    from ceph_tpu_torch.ops import crush_cuda, crush_torch
+
+    dev, n = torch.device("cuda"), 1_000_000
+    T = tables_for(CrushMap.flat(64), dev).rows
+    x = torch.arange(n, dtype=torch.int32, device=dev)
+    rows = torch.zeros_like(x)
+    r = _lanes(np.random.default_rng(SEED), 1, n, dev)[0] & 0x7FFFFFFF
+    got = crush_cuda.crush_straw2(T, x, rows, r)
+    want = crush_torch.straw2_plain(T, x, rows, r)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("crush_straw2 differs from straw2_plain")
+    ms = _time(lambda: crush_cuda.crush_straw2(T, x, rows, r), reps)
+    one = _time(lambda: crush_cuda.crush_straw2(T, x, rows, r), 5 * reps, batch=1)
+    print(json.dumps({"package": str(Path(gf_cuda.__file__).parents[2]),
+                      "kernel": "crush_straw2", "row": "CrushMap.flat(64)", "lanes": n,
+                      "draws": 64 * n, "ms": ms, "ms_one_launch": one,
+                      "G_draws_per_s": 64 * n / ms / 1e6}), flush=True)
+
+
+def compare(name: str, tree: Path, reps: int) -> None:
     here = Path(gf_cuda.__file__).resolve().parents[2]
     for root in (tree.resolve(), here, here, tree.resolve()):
         path = os.pathsep.join(filter(None, [str(root), os.environ.get("PYTHONPATH")]))
         env = dict(os.environ, PYTHONPATH=path)
-        subprocess.run([sys.executable, __file__, "--kernel", kernel.name, "--time",
+        subprocess.run([sys.executable, __file__, "--kernel", name, "--time",
                         "--reps", str(reps)], env=env, check=True)
 
 
@@ -336,7 +371,7 @@ def sass(name: str, symbol: str, out_dir: Path, mt: int | None) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=sorted([*KERNELS, *SASS_ONLY]), default="gf_matmul")
+    ap.add_argument("--kernel", choices=sorted([*KERNELS, *CRUSH_SYMBOLS]), default="gf_matmul")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--compare", type=Path, metavar="TREE")
     ap.add_argument("--sweep", action="store_true")
@@ -347,11 +382,19 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("gf_matmul_sweep: CUDA is not available", file=sys.stderr)
         return 2
-    if args.kernel in SASS_ONLY:
-        if args.time or args.compare or args.sweep or not args.sass:
-            ap.error(f"--kernel {args.kernel} takes only --sass")
+    if args.kernel in CRUSH_SYMBOLS:
+        timed = args.kernel == "crush_straw2"
+        if args.sweep or (not timed and (args.time or args.compare)) or not (
+                args.sass or args.time or args.compare):
+            ap.error(f"--kernel {args.kernel} takes "
+                     + ("--time, --compare and --sass" if timed else "only --sass"))
         print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
-        sass(args.kernel, SASS_ONLY[args.kernel], args.sass, None)
+        if args.sass:
+            sass(args.kernel, CRUSH_SYMBOLS[args.kernel], args.sass, None)
+        if args.time:
+            time_straw2(args.reps)
+        if args.compare:
+            compare(args.kernel, args.compare, args.reps)
         return 0
     kernel = KERNELS[args.kernel]
     print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
@@ -361,7 +404,7 @@ def main(argv=None) -> int:
     if args.time:
         time_package(kernel, args.reps)
     if args.compare:
-        compare(kernel, args.compare, args.reps)
+        compare(kernel.name, args.compare, args.reps)
     if args.sweep:
         sweep(kernel, args.reps)
     return 0

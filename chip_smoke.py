@@ -10,7 +10,7 @@ the CUDA toolkit (``nvcc``):
 Phases, each fatal on any mismatch or exception:
 
 1. the card: ``nvidia-smi`` name and power limit, and torch's name;
-2. build the three Hopper kernels from ``ceph_tpu_torch/csrc`` (one
+2. build the four Hopper kernels from ``ceph_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the build seconds and the
    compiler's register counts;
 3. hold each kernel bit-exact against its plain torch version on the
@@ -64,17 +64,22 @@ Phases, each fatal on any mismatch or exception:
 7. CRUSH bulk placement: ``crush_straw2`` bit-exact against its plain
    version (flat_64's row over 1M lanes; rows with zero weights, one
    item, none, weights from 0x100 to 0x100000; the rows of a 1536-OSD
-   map; X = 1, 31 and 1M+7; random r), timed beside its bound; then,
-   with the launch counts set to 0, the main path: ``CrushTester`` (the
-   ``crushtool --test`` engine) over x = 0..999,999 on flat_64 firstn and
-   indep, chooseleaf_16x4, 8 racks x 16 hosts x 12 devices, and the
-   chained LRC rule, each twice on the batched path with the kernel
-   launched, three of them a third time under ``torch.profiler`` (the
-   card's busy and idle time), and ``crushtool --test`` once; then each
-   case's whole output through
-   the kernel equals the same call with the draw routed to its plain
-   version, 4096 evenly spread lanes equal the scalar mapper, and the
-   tester's counts equal a count of the output;
+   map; X = 1, 31 and 1M+7; random r), timed beside its bound; then
+   ``crush_choose`` on flat_64 firstn over 1M lanes bit-exact against
+   its plain version (the step engine's loops with ``straw2_plain``),
+   timed beside the bound of the draws it counted; then, with the launch
+   counts set to 0, the main path: ``CrushTester`` (the ``crushtool
+   --test`` engine) over x = 0..999,999 on flat_64 firstn and indep,
+   chooseleaf_16x4, 8 racks x 16 hosts x 12 devices (each one
+   ``crush_choose`` launch), and the chained LRC rule (the step engine
+   on ``crush_straw2``), each twice, three of them a third time under
+   ``torch.profiler`` (the card's busy and idle time), and ``crushtool
+   --test`` once; then ``CrushTester`` through the fused and the step
+   routes in turns on the four single-step cases; then each case's
+   whole output equals the plain route (the step engine with the plain
+   draw) and the step route (the step engine on ``crush_straw2``), 4096
+   evenly spread lanes equal the scalar mapper, and the tester's counts
+   equal a count of the output;
 8. the cluster map and device-planned churn: ``synthetic_map`` of
    10,240 OSDs (640 hosts of 16) with a replicated pool (size 3,
    chooseleaf firstn over hosts) and an ISA k=8 m=3 pool (chooseleaf
@@ -83,14 +88,17 @@ Phases, each fatal on any mismatch or exception:
    each copied through the wire dict by ``apply_churn``; then, with the
    launch counts set to 0, the main path: ``ChurnPlanner`` on the card
    maps each pool twice and plans each event.  Every mapping and plan
-   must come from the device path, ``crush_straw2`` must have launched,
-   every plan must remap PGs, and for the down and out events only PGs
-   that held the host's OSDs before or hold them after may remap.  Then
-   the whole pre-churn and out-event mappings with the draw routed to
-   its plain version equal the kernel's, 64 PGs a pool of each of the
-   four maps equal the scalar ``pg_to_up_acting_osds``, and one
-   ``map_all`` runs under ``torch.profiler`` (the card's busy and idle
-   time, ``crush_straw2``'s share);
+   must come from the device path, ``crush_choose`` must have launched
+   (both pools' rules are single-step), every plan must remap PGs, and
+   for the down and out events only PGs that held the host's OSDs
+   before or hold them after may remap.  Then ``map_pool`` through the
+   fused and the step routes in turns; the whole pre-churn and
+   out-event mappings and the out event's plan equal the plain route's,
+   every event's mappings and plan equal the step route's, 64 PGs a
+   pool of each of the four maps equal the scalar
+   ``pg_to_up_acting_osds``, and one ``map_all`` runs under
+   ``torch.profiler`` (the card's busy and idle time, ``crush_choose``'s
+   share);
 9. the shared accelerator service, with the launch counts set to 0 just
    before it: one ``AccelDaemon("accel.0")`` on the card with
    ``Config()``'s dispatcher settings, bound to 127.0.0.1, fed by 4
@@ -252,8 +260,9 @@ Phases, each fatal on any mismatch or exception:
    reference's invariants (no failed client op, every acked write read
    back byte-identical, every PG scrubbed clean), the single kill's
    device plan (``ChurnPlanner`` on the card) must equal the live remap,
-   ``crush_straw2``, ``gf_matmul`` and ``bitmatrix_xor`` must each launch
-   and no OSD may serve an op off the card.  (b) the port's
+   ``crush_choose`` (``crush_straw2`` for a pool's rule that it does not
+   take), ``gf_matmul`` and ``bitmatrix_xor`` must each launch and no
+   OSD may serve an op off the card.  (b) the port's
    ``ProcCluster``: a mon and 14 OSD processes (``python -m
    ceph_tpu_torch.tools.daemon``, each opening the card itself) on
    BlueStore, heartbeat 2 s, an admin socket each through
@@ -338,7 +347,7 @@ Phases, each fatal on any mismatch or exception:
    ``asyncio.wait_for``.
 
 Output: the card line, a ``{"kernels": [...]}`` line (each kernel's
-``launches`` on its main path, phase 4 or 7, with ``launches_osd_engine``
+``launches`` on its main path, phase 4 or 7 (both CRUSH kernels), with ``launches_osd_engine``
 from phase 6, ``launches_churn`` from phase 8,
 ``launches_accel_service`` from phase 9, ``launches_accel_fleet``
 from phase 10, ``launches_observability`` from phase 11 and
@@ -354,6 +363,7 @@ package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -405,16 +415,18 @@ CRUSH_SAMPLE = 4096
 # SM's four schedulers issue at most one warp instruction (32 lanes) a
 # clock each, whatever the pipe
 ISSUE_LANES_PER_CLOCK_PER_SM = 128
-# SASS instructions of one draw on flat_64's row (w > 0, a dividend above
-# 32 bits) in nvcc 12.9's sm_90a build, read from the dump of
-# `gf_matmul_sweep --kernel crush_straw2 --sass`: the item loop
-# (0x0ae0-0x1880) 219, less the normalisation (0x1420-0x1470, 6; only
-# u < 0x7fff takes it) and nvcc's inline 32-bit divide (0x1650-0x1770,
-# 19; taken instead of the call), plus the 64-bit divide's subroutine
-# (0x1b00-0x1f10, 66).  Leaving the normalisation out (3 a draw on
-# average) more than covers the draws with u >= 65524 (under 0.02 %),
-# whose dividend fits 32 bits and which issue 52 instructions fewer.
-INSTRUCTIONS_PER_DRAW = 219 - 6 - 19 + 66
+# SASS instructions of one draw on flat_64's row (w > 0) in nvcc's sm_90a
+# build on the card's machine, read from the dump of `gf_matmul_sweep
+# --kernel crush_straw2 --sass`: the item loop (0x0b30-0x1840) 210, less
+# the normalisation (0x1470-0x14c0, 6; only u + 1 < 0x8000 takes it, about
+# half the draws, so leaving it out keeps the count a floor).  The divide
+# by reciprocal is inline (three IMAD.WIDE and an IMAD.WIDE.X for the high
+# product, then the correction); the dump has no CALL.  crush_choose's
+# draws are counted at the same figure: they run the same straw2_slot
+# (csrc/crush_draw.cuh), whose inlined loops in its dump are 213-221
+# instructions with the normalisation (`--kernel crush_choose --sass`),
+# so the figure keeps its bound a floor too.
+INSTRUCTIONS_PER_DRAW = 210 - 6
 
 # phase 8: a 10k-OSD cluster (tests/test_churn.py:200's shape, 640 hosts
 # of 16) whose two pools sit at Ceph's mon_max_pool_pg_num default, 65536
@@ -1350,7 +1362,8 @@ def straw2_rows_for_checks(dev, rng, big):
     child_row = np.where(items < 0, 0, -1).astype(np.int32)
     synthetic = crush_torch.BucketRows(
         *(torch.from_numpy(a).to(dev) for a in
-          (items, weights, child_row, np.zeros_like(items), size)),
+          (items, weights, crush_torch.recip_table(weights), child_row,
+           np.zeros_like(items), size)),
         crush_torch.ln_table(dev))
     return synthetic, tables_for(big, dev).rows
 
@@ -1386,16 +1399,37 @@ def profile_tester(cmap, ruleno, numrep, weights) -> str:
             + "; ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in top))
 
 
-def run_crush(dev, rng) -> dict:
-    """Phase 7: the ``crush_straw2`` kernel against its plain version, the
-    main path through ``CrushTester`` at x = 0..CRUSH_X-1, and each case's
-    output against the scalar mapper and the plain route.  Returns the
-    kernel's row of the ``kernels`` line."""
+@contextlib.contextmanager
+def crush_route(route: str):
+    """Route the batched mapper for a comparison: "step" puts every rule
+    on the step engine (``crush_straw2``, no ``crush_choose``), "plain"
+    also routes its draw to ``straw2_plain`` (no kernel at all)."""
+    from ceph_tpu_torch.crush import mapper_torch
+    from ceph_tpu_torch.ops import crush_torch
+
+    engine, draw = mapper_torch._engine, crush_torch.straw2
+    if route in ("step", "plain"):
+        mapper_torch._engine = mapper_torch._step_engine
+    if route == "plain":
+        crush_torch.straw2 = crush_torch.straw2_plain
+    try:
+        yield
+    finally:
+        mapper_torch._engine, crush_torch.straw2 = engine, draw
+
+
+def run_crush(dev, rng) -> list[dict]:
+    """Phase 7: the ``crush_straw2`` and ``crush_choose`` kernels against
+    their plain versions, the main path through ``CrushTester`` at x =
+    0..CRUSH_X-1, the fused and the step routes timed in turns, and each
+    case's output against the scalar mapper, the plain route and the
+    step route.  Returns the kernels' rows of the ``kernels`` line."""
     import torch
 
     from ceph_tpu_torch.crush import mapper, mapper_torch
     from ceph_tpu_torch.crush.encoding import crush_to_dict
     from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.crush.mapper_torch_hier import fused_rule, reweight_lanes, tables_for
     from ceph_tpu_torch.crush.tester import CrushTester
     from ceph_tpu_torch.ops import crush_cuda, crush_torch, gf_cuda
     from ceph_tpu_torch.tools import crushtool
@@ -1407,7 +1441,7 @@ def run_crush(dev, rng) -> dict:
         return torch.from_numpy(rng.integers(0, hi, size=n, dtype=np.int64)
                                 .astype(np.uint32).view(np.int32)).to(dev)
 
-    # 1. the kernel against its plain version, bit-exact
+    # 1. crush_straw2 against its plain version, bit-exact
     flat_x = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
     flat_rows = torch.zeros_like(flat_x)
     flat_r = lanes(CRUSH_X, 1 << 31)
@@ -1434,35 +1468,80 @@ def run_crush(dev, rng) -> dict:
     plain_ms = time_cuda(lambda: crush_torch.straw2_plain(synthetic, flat_x, flat_rows, flat_r),
                          reps=3, warmup=1)
     draws = CRUSH_X * 64
-    b_ms, b_by = bound_fn(dev, ISSUE_LANES_PER_CLOCK_PER_SM)(
-        CRUSH_X * (3 * 4 + 3 * 4 + 1), draws * INSTRUCTIONS_PER_DRAW)
+    bound = bound_fn(dev, ISSUE_LANES_PER_CLOCK_PER_SM)
+    b_ms, b_by = bound(CRUSH_X * (3 * 4 + 3 * 4 + 1), draws * INSTRUCTIONS_PER_DRAW)
     log(f"  crush_straw2 on flat_64's row over {CRUSH_X} lanes ({draws} draws): {ms} ms one "
         f"launch a sample, {batched} ms in batches of 20, plain {plain_ms} ms; bound "
         f"{b_ms} ms by {b_by} ({INSTRUCTIONS_PER_DRAW} SASS instructions a draw); "
         f"{draws / batched / 1e6:.4g} G draws/s in batches, {b_ms / batched:.1%} of bound")
+    straw2_row = {
+        "name": "crush_straw2", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_straw2.cu",
+        "replaces": "ceph_tpu/crush/mapper_jax_hier.py:189 (_straw2_rows; "
+                    "straw2_choose_approx, ceph_tpu/crush/mapper_jax.py:280)",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
+    }
 
-    # 2. the main path: CrushTester (crushtool --test's engine) on each case
+    # 2. crush_choose against its plain version on flat_64 firstn at 1M
+    # lanes, bit-exact, timed beside the bound of the draws it counted
+    _name, flat, flat_rule, numrep, _w = cases[0]
+    T, rule = tables_for(flat, dev), fused_rule(flat, flat_rule, numrep)
+    rw = reweight_lanes(flat, None, dev)
+    counted = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = crush_cuda.crush_choose(T, rule, flat_x, rw, counted)
+    with crush_route("plain"):
+        want = mapper_torch.crush_choose_plain(T, rule, flat_x, rw)
+    torch.cuda.synchronize()
+    check_equal("crush_choose flat_64 firstn, 1M lanes", got, want)
+    choose_err = max_abs_err(got, want)
+    choose_draws = int(counted.item())
+    choose_ms = time_cuda(lambda: crush_cuda.crush_choose(T, rule, flat_x, rw), reps=30)
+    choose_batched = time_cuda(lambda: crush_cuda.crush_choose(T, rule, flat_x, rw),
+                               reps=10, batch=20)
+
+    def choose_plain():
+        with crush_route("plain"):
+            mapper_torch.crush_choose_plain(T, rule, flat_x, rw)
+
+    choose_plain_ms = time_cuda(choose_plain, reps=3, warmup=1)
+    # x in, each slot out, the take row and the reweight vector read once
+    choose_bytes = CRUSH_X * 4 * (1 + rule.width) + T.sizes[rule.take_row] * 24 + rw.numel() * 4
+    c_ms, c_by = bound(choose_bytes, choose_draws * INSTRUCTIONS_PER_DRAW)
+    log(f"  crush_choose on flat_64 firstn over {CRUSH_X} lanes: bit-exact against "
+        f"crush_choose_plain; {choose_draws} draws counted ({choose_draws / CRUSH_X:.4g} a lane; "
+        f"the step engine draws over every lane each try); {choose_ms} ms one launch a sample, "
+        f"{choose_batched} ms in batches of 20, plain {choose_plain_ms} ms; bound {c_ms} ms by "
+        f"{c_by} ({choose_bytes} bytes; {INSTRUCTIONS_PER_DRAW} SASS instructions a draw); "
+        f"{c_ms / choose_batched:.1%} of bound in batches")
+
+    # 3. the main path: CrushTester (crushtool --test's engine) on each
+    # case; a rule that crush_choose takes launches it, the chain crush_straw2
     xs = np.arange(CRUSH_X, dtype=np.uint32)
     reports = {}
+    single = {name: fused_rule(cmap, ruleno, numrep) is not None
+              for name, cmap, ruleno, numrep, _w in cases}
     gf_cuda.reset_launches()
     for name, cmap, ruleno, numrep, weights in cases:
         tester = CrushTester(cmap)
         tester.min_x, tester.max_x = 0, CRUSH_X - 1
         tester.weight = weights
+        kernel = "crush_choose" if single[name] else "crush_straw2"
         for run in ("first", "second"):  # the first builds the map's tables
-            before = gf_cuda.launches["crush_straw2"]
+            before = gf_cuda.launch_counts()
             rep = tester.test_rule(ruleno, numrep)
             torch.cuda.synchronize()
-            launched = gf_cuda.launches["crush_straw2"] - before
-            if rep.backend != "vectorized" or launched == 0:
-                raise AssertionError(f"{name}: backend {rep.backend}, {launched} launches")
+            launched = {k: c - before[k] for k, c in gf_cuda.launch_counts().items()
+                        if k.startswith("crush")}
+            if rep.backend != "vectorized" or launched[kernel] == 0:
+                raise AssertionError(f"{name}: backend {rep.backend}, launches {launched}")
             if run == "second" and (rep.device_counts, rep.bad_mappings) != (
                     reports[name].device_counts, reports[name].bad_mappings):
                 raise AssertionError(f"{name}: a second run counted otherwise")
             reports[name] = rep
             log(f"  {name}, {run} run: CrushTester {rep.num_inputs} x numrep {numrep} in "
                 f"{rep.elapsed_seconds} s = {rep.num_inputs / rep.elapsed_seconds} mappings/s "
-                f"({rep.backend}; {launched} crush_straw2 launches; bad {rep.bad_mappings})")
+                f"({rep.backend}; launches {launched}; bad {rep.bad_mappings})")
     for name, cmap, ruleno, numrep, weights in (cases[0], cases[3], cases[4]):
         log(f"  {name}, a third run under torch.profiler: {profile_tester(cmap, ruleno, numrep, weights)}")
     path = gf_cuda.BUILD_DIR / "crush_16x4.json"
@@ -1474,26 +1553,46 @@ def run_crush(dev, rng) -> dict:
     if crushtool.main(argv) != 0:
         raise AssertionError("crushtool --test failed")
     torch.cuda.synchronize()
-    launches = gf_cuda.launches["crush_straw2"]
-    log(f"  crush_straw2 launches on the main path: {launches}")
+    main_path = gf_cuda.launch_counts()
+    log(f"  CRUSH launches on the main path: crush_choose {main_path['crush_choose']}, "
+        f"crush_straw2 {main_path['crush_straw2']}")
 
-    # 3. each case's whole output: kernel route == plain route, sampled
-    # lanes == the scalar mapper, the tester's counts == its bincount
-    routed = crush_torch.straw2
+    # 4. CrushTester through the fused route and the step route, in turns
+    for name, cmap, ruleno, numrep, weights in cases:
+        if not single[name]:
+            continue
+        tester = CrushTester(cmap)
+        tester.min_x, tester.max_x = 0, CRUSH_X - 1
+        tester.weight = weights
+        rates = {"fused": [], "step": []}
+        for route in ("fused", "step", "step", "fused"):
+            with crush_route(route):
+                rep = tester.test_rule(ruleno, numrep)
+                torch.cuda.synchronize()
+            rates[route].append(rep.num_inputs / rep.elapsed_seconds)
+        log(f"  {name}: CrushTester mappings/s in turns (fused, step, step, fused): fused "
+            f"{rates['fused']}, step {rates['step']}; fused / step "
+            f"{statistics.median(rates['fused']) / statistics.median(rates['step']):.3g}x")
+
+    # 5. each case's whole output: fused route == plain route == step
+    # route, sampled lanes == the scalar mapper, the tester's counts ==
+    # its bincount
     for name, cmap, ruleno, numrep, weights in cases:
         out = mapper_torch.vec_do_rule(cmap, ruleno, xs, numrep, weight=weights)
-        before = gf_cuda.launches["crush_straw2"]
-        crush_torch.straw2 = crush_torch.straw2_plain
-        try:
+        before = gf_cuda.launch_counts()
+        with crush_route("plain"):
             t0 = time.perf_counter()
             plain = mapper_torch.vec_do_rule(cmap, ruleno, xs, numrep, weight=weights)
             t_plain = time.perf_counter() - t0
-        finally:
-            crush_torch.straw2 = routed
-        if gf_cuda.launches["crush_straw2"] != before:
-            raise AssertionError(f"{name}: the plain route launched the kernel")
-        if out.shape != plain.shape or not np.array_equal(out, plain):
-            raise AssertionError(f"{name}: kernel route differs from the plain route")
+        if gf_cuda.launch_counts() != before:
+            raise AssertionError(f"{name}: the plain route launched a kernel")
+        with crush_route("step"):
+            step = mapper_torch.vec_do_rule(cmap, ruleno, xs, numrep, weight=weights)
+        if gf_cuda.launch_counts()["crush_choose"] != before["crush_choose"]:
+            raise AssertionError(f"{name}: the step route launched crush_choose")
+        for what, other in (("plain", plain), ("step", step)):
+            if out.shape != other.shape or not np.array_equal(out, other):
+                raise AssertionError(f"{name}: the main route differs from the {what} route")
         sample = np.linspace(0, CRUSH_X - 1, CRUSH_SAMPLE).astype(np.int64)
         ws = mapper.Workspace(cmap)
         for x in sample:
@@ -1513,18 +1612,22 @@ def run_crush(dev, rng) -> dict:
         if (rep.device_counts != {int(v): int(c) for v, c in zip(vals, counts)}
                 or rep.bad_mappings != int((placed.sum(axis=1) < out.shape[1]).sum())):
             raise AssertionError(f"{name}: CrushTester counts differ from the output's")
-        log(f"  {name}: [{CRUSH_X}, {out.shape[1]}] kernel route == plain route "
-            f"({t_plain:.3f} s), {CRUSH_SAMPLE} lanes == scalar mapper, counts == "
-            f"bincount; scalar mapper {scalar_us} us a mapping")
-    return {
-        "name": "crush_straw2", "route": "cuda",
-        "source": "ceph_tpu_torch/csrc/crush_straw2.cu",
-        "replaces": "ceph_tpu/crush/mapper_jax_hier.py:189 (_straw2_rows; "
-                    "straw2_choose_approx, ceph_tpu/crush/mapper_jax.py:280)",
-        "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        route = "crush_choose" if single[name] else "the step engine's crush_straw2"
+        log(f"  {name}: [{CRUSH_X}, {out.shape[1]}] main route ({route}) == plain route "
+            f"({t_plain:.3f} s) == step route, {CRUSH_SAMPLE} lanes == scalar mapper, counts "
+            f"== bincount; scalar mapper {scalar_us} us a mapping")
+    straw2_row["launches"] = main_path["crush_straw2"]
+    choose_row = {
+        "name": "crush_choose", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_choose.cu",
+        "replaces": "ceph_tpu/crush/mapper_jax.py:336 (choose_firstn; choose_indep :400; "
+                    "choose_firstn_hier, choose_indep_hier, "
+                    "ceph_tpu/crush/mapper_jax_hier.py:344, :467)",
+        "launches": main_path["crush_choose"], "max_abs_err": choose_err,
+        "ms": choose_ms, "plain_ms": choose_plain_ms, "bound_ms": c_ms, "bound_by": c_by,
         "library_ms": None,
     }
+    return [straw2_row, choose_row]
 
 
 # -- phase 8: the cluster map and device-planned churn ---------------------------
@@ -1551,10 +1654,10 @@ def run_churn(dev, rng) -> dict:
 
     from ceph_tpu_torch.crush import mapper_torch
     from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
-    from ceph_tpu_torch.crush.mapper_torch_hier import MapTables, tables_for
+    from ceph_tpu_torch.crush.mapper_torch_hier import MapTables, fused_rule, tables_for
     from ceph_tpu_torch.osd.churn import ChurnPlanner, apply_churn, synthetic_map
     from ceph_tpu_torch.osd.osdmap import OSDMap, PGid
-    from ceph_tpu_torch.ops import crush_torch, gf_cuda
+    from ceph_tpu_torch.ops import gf_cuda
 
     t0 = time.perf_counter()
     m = synthetic_map(CHURN_OSDS, CHURN_OSDS_PER_HOST, replicated=(3, CHURN_PG_NUM),
@@ -1627,8 +1730,25 @@ def run_churn(dev, rng) -> dict:
     torch.cuda.synchronize()
     launches = dict(gf_cuda.launches)
     log(f"  launches on the main path: {launches}")
-    if launches["crush_straw2"] == 0:
-        raise AssertionError("crush_straw2 was not launched in phase 8")
+    # each pool's rule is single-step: its CUDA lanes take crush_choose
+    for pool in m.pools.values():
+        ruleno = m.crush.find_rule(pool.crush_ruleset, pool.type, pool.size)
+        if fused_rule(m.crush, ruleno, pool.size) is None:
+            raise AssertionError(f"pool {pool.name}: crush_choose does not take its rule")
+    if launches["crush_choose"] == 0:
+        raise AssertionError("crush_choose was not launched in phase 8")
+
+    # map_pool through the fused and the step routes, in turns
+    for pool in m.pools.values():
+        times = {"fused": [], "step": []}
+        for route in ("fused", "step", "step", "fused"):
+            with crush_route(route):
+                t0 = time.perf_counter()
+                planner.map_pool(m, pool)
+                torch.cuda.synchronize()
+                times[route].append((time.perf_counter() - t0) * 1e3)
+        log(f"  map_pool {pool.name} in turns (fused, step, step, fused), ms: fused "
+            f"{times['fused']}, step (crush_straw2) {times['step']}")
 
     # CRUSH moves only what the churned OSDs held, or now hold
     for (name, osds, _kw), (plan, post_maps) in zip(events[:2], plans[:2]):
@@ -1643,22 +1763,36 @@ def run_churn(dev, rng) -> dict:
             log(f"  event {name}, pool {pid}: {len(entries)} remapped of "
                 f"{int(touched.sum())} PGs that held or hold the host's OSDs")
 
-    # the whole pre-churn and out-event mappings: kernel route == plain route
-    routed = crush_torch.straw2
+    # the whole pre-churn and out-event mappings: main route == plain route
+    plain_maps = {}
     for name, mp, kernel_maps in (("pre-churn", m, pre), ("event 2", posts[1], plans[1][1])):
-        crush_torch.straw2 = crush_torch.straw2_plain
-        try:
+        with crush_route("plain"):
             t0 = time.perf_counter()
-            plain = planner.map_all(mp)
+            plain = plain_maps[name] = planner.map_all(mp)
             torch.cuda.synchronize()
             t_plain = time.perf_counter() - t0
-        finally:
-            crush_torch.straw2 = routed
         for pid, got in kernel_maps.items():
             check_equal(f"{name} pool {pid} acting", got.acting, plain[pid].acting)
             check_equal(f"{name} pool {pid} primary", got.primary, plain[pid].primary)
-        log(f"  {name}: every PG of both pools, kernel route == plain route "
+        log(f"  {name}: every PG of both pools, main route == plain route "
             f"(plain route {t_plain} s)")
+    plain_plan = planner.diff(plain_maps["pre-churn"], plain_maps["event 2"], posts[1])
+    if plain_plan.remapped != plans[1][0].remapped or plain_plan.summary() != plans[1][0].summary():
+        raise AssertionError("event 2: the plan differs from the plain route's")
+    # every event's mappings and plan: main route == step route
+    with crush_route("step"):
+        step_pre = planner.map_all(m)
+        for (name, _osds, _kw), post, (plan, post_maps) in zip(events, posts, plans):
+            step_post = planner.map_all(post)
+            for pid, got in post_maps.items():
+                check_equal(f"event {name} pool {pid} acting", got.acting, step_post[pid].acting)
+                check_equal(f"event {name} pool {pid} primary", got.primary,
+                            step_post[pid].primary)
+            step_plan = planner.diff(step_pre, step_post, post)
+            if step_plan.remapped != plan.remapped or step_plan.summary() != plan.summary():
+                raise AssertionError(f"event {name}: the plan differs from the step route's")
+    log("  event 2's plan == the plain route's; every event's mappings and plan == the "
+        "step route's (crush_straw2)")
 
     # sampled PGs of each map == the scalar walk
     scalar_s, walked = 0.0, 0
@@ -1691,10 +1825,10 @@ def run_churn(dev, rng) -> dict:
         planner.map_all(m)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, share = device_busy(prof, "crush_straw2")
+    busy, share = device_busy(prof, "crush_choose")
     if busy:
         log(f"  map_all under torch.profiler: {wall * 1e3} ms wall, the card busy "
-            f"{busy} ms (idle {1 - busy / (wall * 1e3):.1%}), crush_straw2 {share:.1%} "
+            f"{busy} ms (idle {1 - busy / (wall * 1e3):.1%}), crush_choose {share:.1%} "
             "of the busy time")
     else:
         log(f"  map_all under torch.profiler: {wall * 1e3} ms wall; device time not "
@@ -3952,6 +4086,7 @@ def run_storm(dev, rng, root: str | None = None) -> dict:
 
     import torch
 
+    from ceph_tpu_torch.crush.mapper_torch_hier import fused_rule
     from ceph_tpu_torch.ops import gf_cuda
     from ceph_tpu_torch.rados import ClientLoad, MiniCluster, StormDriver
 
@@ -4066,7 +4201,15 @@ def run_storm(dev, rng, root: str | None = None) -> dict:
             launches["part"] = {nm: c - start[nm] for nm, c in snapshot().items()}
             log(f"  launches in the part: {launches['part']}; {device_batches[0]} device-lane "
                 f"launches over the OSDs' dispatchers, no op off the card")
-            for name in gf_cuda.SOURCES:
+            # the plans' CRUSH kernel: crush_choose for a single-step rule,
+            # the step engine's crush_straw2 otherwise
+            m = cl.osdmap
+            crush = set()
+            for pool in m.pools.values():
+                ruleno = m.crush.find_rule(pool.crush_ruleset, pool.type, pool.size)
+                single = fused_rule(m.crush, ruleno, pool.size) is not None
+                crush.add("crush_choose" if single else "crush_straw2")
+            for name in (*gf_cuda.EC_KERNELS, *sorted(crush)):
                 if launches["part"][name] == 0:
                     raise AssertionError(f"{name} was not launched in phase 15 (a)")
         finally:
@@ -5323,7 +5466,7 @@ def main() -> int:
     osd_launches = run_osd_engine(dev, rng, osd_figures)
 
     phase("7. CRUSH bulk placement")
-    rows.append(run_crush(dev, rng))
+    rows.extend(run_crush(dev, rng))
 
     phase("8. cluster map and churn planning")
     churn_launches = run_churn(dev, rng)

@@ -47,7 +47,7 @@ import torch
 
 from ceph_tpu_torch.crush import mapper_torch
 from ceph_tpu_torch.crush.map import CrushMap
-from ceph_tpu_torch.crush.mapper_torch_hier import tables_for
+from ceph_tpu_torch.crush.mapper_torch_hier import fused_rule, reweight_lanes, tables_for
 from ceph_tpu_torch.crush.tester import CrushTester
 from ceph_tpu_torch.device import DeviceUnavailableError, resolve
 from ceph_tpu_torch.models import registry
@@ -330,6 +330,33 @@ def test_crush_cpu_lanes_take_plain_version_and_kernel_refuses_them():
     assert gf_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         crush_cuda.crush_straw2(T, x, rows, r)
+    assert gf_cuda.launches == before
+
+
+def test_crush_choose_refuses_cpu_tensors_and_cpu_rules_launch_nothing():
+    """The fused choose step: CPU lanes take its plain version (the step
+    engine), a CPU ``vec_do_rule`` or ``vec_rule_stats`` launches no
+    kernel, and the ``crush_choose`` wrapper refuses CPU tensors."""
+    cpu = torch.device("cpu")
+    flat = CrushMap.flat(8)
+    flat_rule = flat.add_simple_rule(flat.root_id(), 0)
+    h = CrushMap.hierarchical([list(range(4 * i, 4 * i + 4)) for i in range(4)])
+    leaf_rule = h.add_simple_rule(h.root_id("default"), 1, indep=True)
+    x = torch.arange(64, dtype=torch.int32)
+    before = dict(gf_cuda.launches)
+    for cmap, ruleno in ((flat, flat_rule), (h, leaf_rule)):
+        T, rule = tables_for(cmap, cpu), fused_rule(cmap, ruleno, 3)
+        rw = reweight_lanes(cmap, None, cpu)
+        assert rule is not None
+        assert torch.equal(mapper_torch.choose(T, rule, x, rw),
+                           mapper_torch.crush_choose_plain(T, rule, x, rw))
+        assert torch.equal(torch.from_numpy(mapper_torch.vec_do_rule(
+            cmap, ruleno, np.arange(64), 3, device="cpu")),
+            mapper_torch._step_engine(cmap, ruleno, x, 3, None))
+        mapper_torch.vec_rule_stats(cmap, ruleno, np.arange(64), 3, device="cpu")
+        assert gf_cuda.launches == before
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            crush_cuda.crush_choose(T, rule, x, rw)
     assert gf_cuda.launches == before
 
 

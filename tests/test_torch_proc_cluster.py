@@ -415,8 +415,8 @@ def test_phase15_on_the_cpu(monkeypatch, tmp_path):
     16 KiB objects and 4 OSDs: the storm's two scenarios on an
     in-process cluster of 4 with pools A and B cut to isa k=2 m=2 and
     cauchy_good k=2 m=2, their dispatchers on the batching lane with the
-    plain kernels (and the plain straw2 draw) counting as launches here;
-    then 4 OSD processes (``--device cpu``) through the kill, the
+    plain kernels (and the plain straw2 draw and choose step) counting as
+    launches here; then 4 OSD processes (``--device cpu``) through the kill, the
     restart, ``rados bench`` for 1 s and the ``ceph`` CLI.  Left out, as
     they need the card: the OSD processes naming a CUDA device in their
     admin sockets, the trace window on one of them, and their device-lane
@@ -425,6 +425,7 @@ def test_phase15_on_the_cpu(monkeypatch, tmp_path):
 
     import chip_smoke
     import ceph_tpu_torch.utils.native as port_native
+    from ceph_tpu_torch.crush import mapper_torch
     from ceph_tpu_torch.ops import crush_torch, gf_cuda, gf_torch
 
     monkeypatch.setattr(port_native, "host_engine_active", lambda device=None: False)
@@ -439,6 +440,8 @@ def test_phase15_on_the_cpu(monkeypatch, tmp_path):
     for name, fn in (("gf_matmul", "gf_matmul_u32"), ("bitmatrix_xor", "bitmatrix_matmul_u32")):
         monkeypatch.setattr(gf_torch, fn, counting(name, getattr(gf_torch, fn)))
     monkeypatch.setattr(crush_torch, "straw2", counting("crush_straw2", crush_torch.straw2_plain))
+    monkeypatch.setattr(mapper_torch, "choose",
+                        counting("crush_choose", mapper_torch.crush_choose_plain))
     pools = {
         "a": ({"plugin": "isa", "k": "2", "m": "2"}, 4096),
         "b": ({"plugin": "jerasure", "technique": "cauchy_good", "k": "2", "m": "2",
