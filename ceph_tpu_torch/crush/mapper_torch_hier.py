@@ -50,6 +50,7 @@ Supported shape (``supports_hier``), as the reference's:
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -560,11 +561,15 @@ def _recurse_tries(t, firstn: bool, tries: int, leaf_tries: int) -> int:
 
 class FusedRule(NamedTuple):
     """A single-step rule as the ``crush_choose`` kernel takes it: its
-    ints, in this order, are the kernel's ``Rule``
-    (``csrc/crush_choose.cu``).  ``take_row`` is the TAKE bucket's table
-    row, ``width`` the output's slots (``min(numrep, result_max)``) and
-    ``depth`` the levels of buckets below the TAKE bucket, which bounds
-    a descent."""
+    first ``gf_cuda.CHOOSE_RULE_INTS`` ints, in this order, are the
+    kernel's ``Rule`` (``csrc/crush_choose.cu``).  ``take_row`` is the
+    TAKE bucket's table row, ``width`` the output's slots
+    (``min(numrep, result_max)``), ``depth`` the levels of buckets below
+    the TAKE bucket, which bounds a descent; ``widest`` and ``row_gcd``
+    are the most items of a row the rule may draw over (the TAKE
+    bucket's or a bucket's below it) and the greatest common divisor of
+    those rows' sizes, which the wrapper reads to pick the kernel's
+    tile."""
 
     take_row: int
     firstn: int
@@ -577,16 +582,30 @@ class FusedRule(NamedTuple):
     vary_r: int
     stable: int
     depth: int
+    widest: int
+    row_gcd: int
+
+
+def _path_sizes(cmap: CrushMap, take: int) -> list[int]:
+    """The sizes of bucket ``take`` and of every bucket below it."""
+    seen, todo = {take}, [take]
+    while todo:
+        for it in cmap.buckets[todo.pop()].items:
+            if it < 0 and it in cmap.buckets and it not in seen:
+                seen.add(it)
+                todo.append(it)
+    return [len(cmap.buckets[b].items) for b in seen]
 
 
 def fused_rule(cmap: CrushMap, ruleno: int, result_max: int) -> FusedRule | None:
     """The rule as the ``crush_choose`` kernel takes it, or None when the
     kernel does not take it: a rule :func:`supports_hier` refuses
     (legacy local tries included), a chain of more than one choose step
-    (the LRC rules, left to the step engine), a degenerate numrep, or
-    more than ``gf_cuda.CHOOSE_MAX_WIDTH`` slots.  Read from the same
-    :func:`_rule_shape` and leaf tries as :func:`_hier_engine`, so the
-    kernel and the step engine run one rule."""
+    (the LRC rules, left to the step engine), a degenerate numrep, more
+    than ``gf_cuda.CHOOSE_MAX_WIDTH`` slots, or a row of
+    ``gf_cuda.CHOOSE_MAX_SLOTS`` items or more on its path.  Read from
+    the same :func:`_rule_shape` and leaf tries as :func:`_hier_engine`,
+    so the kernel and the step engine run one rule."""
     if not supports_hier(cmap, ruleno):
         return None
     take, chooses, tries, leaf_tries, vary_r, stable = _rule_shape(cmap, ruleno)
@@ -599,10 +618,13 @@ def fused_rule(cmap: CrushMap, ruleno: int, result_max: int) -> FusedRule | None
     width = min(numrep, result_max)
     if numrep <= 0 or not 1 <= width <= gf_cuda.CHOOSE_MAX_WIDTH:
         return None
+    sizes = _path_sizes(cmap, take)
+    if max(sizes) >= gf_cuda.CHOOSE_MAX_SLOTS:
+        return None
     return FusedRule(
         sorted(cmap.buckets).index(take), int(firstn), int(leaf), numrep, width, tries,
         _recurse_tries(cmap.tunables, firstn, tries, leaf_tries), choose.arg2, vary_r,
-        stable, _bucket_depth(cmap, take, {}))
+        stable, _bucket_depth(cmap, take, {}), max(sizes), math.gcd(*sizes))
 
 
 def _chain_engine(T, x, rw, root_row, chooses, tries, leaf_tries, result_max):

@@ -1,12 +1,13 @@
 // crush_draw.cuh: the device functions of CRUSH's straw2 draw, shared by
 // crush_straw2.cu (one draw over a bucket row per lane) and
-// crush_choose.cu (a whole choose step per lane).
+// crush_choose.cu (a whole choose step per lane, a row's draws split
+// over a tile of threads).
 //
 // hash32_2 / hash32_3 are rjenkins1 (reference:src/crush/hash.c:37, :48),
 // crush_ln the fixed-point 2^44 * log2(u + 1) (reference:mapper.c:248),
-// is_out the reweight rejection (reference:mapper.c:385), and straw2_slot
-// the draw of bucket_straw2_choose (reference:mapper.c:302,
-// ceph_tpu_torch/crush/mapper.py:176):
+// is_out the reweight rejection (reference:mapper.c:385), straw2_q one
+// item's draw and straw2_slot the draw of bucket_straw2_choose
+// (reference:mapper.c:302, ceph_tpu_torch/crush/mapper.py:176):
 //
 //   for each item i of the bucket, in order:
 //     u    = hash32_3(x, item, r) & 0xffff
@@ -108,8 +109,18 @@ __device__ __forceinline__ uint64_t div_by_recip(uint64_t n, uint32_t w, uint64_
   return q;
 }
 
+// The quotient q = -draw of one item of positive weight w (recip its
+// reciprocal): (2^48 - crush_ln(hash32_3(x, item, r) & 0xffff)) / w, at
+// most 2^48.  Both kernels draw through it.
+__device__ __forceinline__ uint64_t straw2_q(int32_t item, uint32_t w, uint64_t recip,
+                                             uint32_t x, uint32_t r, const int64_t* ln) {
+  uint32_t u = hash32_3(x, static_cast<uint32_t>(item), r) & 0xFFFFu;
+  uint64_t neg_ln = (1ull << 48) - static_cast<uint64_t>(crush_ln(u, ln));
+  return div_by_recip(neg_ln, w, recip);
+}
+
 // The winning slot of straw2 over a row's first n entries (slot 0 when n
-// is 0).  The row's pointers may be shared or global.
+// is 0), one item after the other.
 __device__ __forceinline__ int straw2_slot(const int32_t* items, const int32_t* weights,
                                            const uint64_t* recip, int n, uint32_t x,
                                            uint32_t r, const int64_t* ln) {
@@ -118,11 +129,7 @@ __device__ __forceinline__ int straw2_slot(const int32_t* items, const int32_t* 
   for (int i = 0; i < n; ++i) {
     int32_t w = weights[i];
     uint64_t q = ~0ull;
-    if (w > 0) {
-      uint32_t u = hash32_3(x, static_cast<uint32_t>(items[i]), r) & 0xFFFFu;
-      uint64_t neg_ln = (1ull << 48) - static_cast<uint64_t>(crush_ln(u, ln));
-      q = div_by_recip(neg_ln, static_cast<uint32_t>(w), recip[i]);
-    }
+    if (w > 0) q = straw2_q(items[i], static_cast<uint32_t>(w), recip[i], x, r, ln);
     if (q < high_q) {
       high = i;
       high_q = q;

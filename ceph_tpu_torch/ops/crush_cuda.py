@@ -6,7 +6,8 @@ reference's CRUSH XLA programs (``straw2_choose_approx``,
 ``ceph_tpu/crush/mapper_jax.py:280``; ``_straw2_rows``,
 ``ceph_tpu/crush/mapper_jax_hier.py:189``).  ``csrc/crush_choose.cu``
 runs a single-step rule's whole choose step per lane (firstn or indep,
-chooseleaf included), as the scalar mapper does; it replaces the
+chooseleaf included), as the scalar mapper does, a tile of
+:func:`choose_tile` threads a lane; it replaces the
 reference's ``choose_firstn``/``choose_indep`` programs and their
 hierarchical twins.  Both are built and loaded by ``gf_cuda``'s machinery
 (``nvcc`` into ``ceph_tpu_torch/build/`` at first use, bound with
@@ -73,8 +74,32 @@ def crush_straw2(T, x: torch.Tensor, rows: torch.Tensor, r: torch.Tensor):
     return out[0], out[1], out[2], empty
 
 
+def choose_tile(T, rule) -> int:
+    """The threads a lane (one of ``gf_cuda.CHOOSE_TILES``) that
+    ``crush_choose`` runs ``rule`` with: 8 when 8 divides the size of
+    every row on the rule's path (``rule.row_gcd``), else 4, so that no
+    thread of a tile idles in a round of draws and a warp holds 4 or 8
+    lanes.  On the card that tile was the fastest of the four, or within
+    5 % of it, on each case of ``chip_smoke.py`` phases 7 and 8; the
+    take row's size rounded up to a power of two was up to 1.6 times
+    slower (PERF.md).  Raises on a rule the kernel does not take: a
+    width outside [1, ``gf_cuda.CHOOSE_MAX_WIDTH``], or a row of
+    ``gf_cuda.CHOOSE_MAX_SLOTS`` items or more on its path (the tile's
+    key keeps a slot in 15 bits).  Host-side: ``T`` is a
+    ``mapper_torch_hier.MapTables`` on any device."""
+    if not 1 <= rule.width <= gf_cuda.CHOOSE_MAX_WIDTH:
+        raise ValueError(f"crush_choose takes 1 to {gf_cuda.CHOOSE_MAX_WIDTH} slots, "
+                         f"not {rule.width}")
+    if not 0 <= rule.take_row < T.B:
+        raise ValueError(f"take row {rule.take_row} outside the map's {T.B} rows")
+    if rule.widest >= gf_cuda.CHOOSE_MAX_SLOTS:
+        raise ValueError(f"crush_choose takes rows of fewer than {gf_cuda.CHOOSE_MAX_SLOTS} "
+                         f"items, not {rule.widest}")
+    return 8 if rule.row_gcd % 8 == 0 else 4
+
+
 def crush_choose(T, rule, x: torch.Tensor, reweight: torch.Tensor,
-                 draws: torch.Tensor | None = None) -> torch.Tensor:
+                 draws: torch.Tensor | None = None, tile: int | None = None) -> torch.Tensor:
     """One rule's choose step over int32 lanes ``x`` on the card ->
     [lanes, rule.width] int32 with CRUSH_ITEM_NONE holes, as
     ``mapper_torch.crush_choose_plain`` returns it.  ``T`` is the map's
@@ -82,7 +107,9 @@ def crush_choose(T, rule, x: torch.Tensor, reweight: torch.Tensor,
     ``mapper_torch_hier.FusedRule`` of that map and ``reweight`` the
     int32 in/out weights (16.16) on the device.  The kernel adds the
     draws it made to ``draws``, an int64 [1] tensor on the device, when
-    one is given (the wrapper allocates one otherwise)."""
+    one is given (the wrapper allocates one otherwise).  ``tile``, the
+    threads a lane, is :func:`choose_tile`'s unless given (for a
+    measurement)."""
     lanes = x.shape[0] if isinstance(x, torch.Tensor) else 0
     dev = getattr(x, "device", None)
     _check_lanes(lanes, dev, x=x)
@@ -91,11 +118,12 @@ def crush_choose(T, rule, x: torch.Tensor, reweight: torch.Tensor,
             or not reweight.is_contiguous()):
         raise ValueError(f"reweight must be a contiguous int32 vector on {dev}")
     _check_tables(T.rows, dev)
-    if not 1 <= rule.width <= gf_cuda.CHOOSE_MAX_WIDTH:
-        raise ValueError(f"crush_choose takes 1 to {gf_cuda.CHOOSE_MAX_WIDTH} slots, "
-                         f"not {rule.width}")
-    if not 0 <= rule.take_row < T.B:
-        raise ValueError(f"take row {rule.take_row} outside the map's {T.B} rows")
+    chosen = choose_tile(T, rule)  # raises on a rule the kernel does not take
+    if tile is None:
+        tile = chosen
+    elif tile not in gf_cuda.CHOOSE_TILES:
+        raise ValueError(f"crush_choose runs a tile of {gf_cuda.CHOOSE_TILES} threads, "
+                         f"not {tile}")
     if draws is None:
         draws = torch.zeros(1, dtype=torch.int64, device=dev)
     elif (draws.device != dev or draws.dtype != torch.int64 or draws.numel() != 1
@@ -104,7 +132,7 @@ def crush_choose(T, rule, x: torch.Tensor, reweight: torch.Tensor,
     out = torch.empty((lanes, rule.width), dtype=torch.int32, device=dev)
     if lanes == 0:
         return out
-    packed = np.asarray(rule, dtype=np.int32)
+    packed = np.asarray(rule[:gf_cuda.CHOOSE_RULE_INTS], dtype=np.int32)
     if packed.shape != (gf_cuda.CHOOSE_RULE_INTS,):
         raise ValueError(f"a rule is {gf_cuda.CHOOSE_RULE_INTS} ints, got {packed.shape}")
     R = T.rows
@@ -116,7 +144,7 @@ def crush_choose(T, rule, x: torch.Tensor, reweight: torch.Tensor,
             R.child_row.data_ptr(), R.child_type.data_ptr(), R.size.data_ptr(),
             T.sizes[rule.take_row], R.ln.data_ptr(), reweight.data_ptr(),
             reweight.shape[0], T.I, lanes, packed.ctypes.data, out.data_ptr(),
-            draws.data_ptr(), stream,
+            draws.data_ptr(), tile, stream,
         )
     gf_cuda._launched("crush_choose", rc)
     return out

@@ -12,7 +12,8 @@ CUDA C++ under ``ceph_tpu_torch/csrc/``:
 - ``crush_straw2`` (``csrc/crush_straw2.cu``) replaces the straw2 draw
   of the reference's CRUSH XLA programs, and ``crush_choose``
   (``csrc/crush_choose.cu``) their whole choose step of a single-step
-  rule, one lane per thread; both draw through ``csrc/crush_draw.cuh``.
+  rule, a tile of threads a lane; both draw through
+  ``csrc/crush_draw.cuh``.
   Their wrappers are in ``crush_cuda``, their builds, libraries and
   launch counts here.
 
@@ -90,10 +91,13 @@ BM_PLAN_WORDS = 2 * BM_PLAN_ROWS
 # the CRUSH kernels' ln tables, in step with kLnEntries of
 # csrc/crush_draw.cuh: RH_LH_TBL (258 int64) then LL_TBL (256)
 LN_ENTRIES = 514
-# crush_choose's slots a lane (kMaxWidth of csrc/crush_choose.cu) and its
-# rule's ints (kRuleInts)
+# crush_choose's slots a lane (kMaxWidth of csrc/crush_choose.cu), its
+# rule's ints (kRuleInts), the items a row may hold (kMaxSlots: the
+# tile's key keeps a slot in 15 bits) and its tiles (threads a lane)
 CHOOSE_MAX_WIDTH = 32
 CHOOSE_RULE_INTS = 11
+CHOOSE_MAX_SLOTS = 1 << 15
+CHOOSE_TILES = (4, 8, 16, 32)
 
 # launches per kernel since the last reset_launches()
 launches = {name: 0 for name in SOURCES}
@@ -115,8 +119,8 @@ _ARGTYPES = {
     # x (int32 lanes), items, weights, recip, child_row, child_type, size,
     # the take row's size, ln tables, reweight (int32), its length, I,
     # lanes, rule (host ints), out (int32 [lanes, width]), draws (int64
-    # [1]), stream
-    "crush_choose": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _N, _P, _P, _P, _P],
+    # [1]), tile (threads a lane), stream
+    "crush_choose": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _N, _P, _P, _P, _I, _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -222,9 +226,11 @@ def _lib(name: str) -> ctypes.CDLL:
                 raise KernelBuildError("crush_straw2.cu's ln tables differ from LN_ENTRIES")
             if name == "crush_choose" and (
                     lib.crush_choose_max_width() != CHOOSE_MAX_WIDTH
-                    or lib.crush_choose_rule_ints() != CHOOSE_RULE_INTS):
-                raise KernelBuildError("crush_choose.cu's slots or rule differ from "
-                                       "CHOOSE_MAX_WIDTH / CHOOSE_RULE_INTS")
+                    or lib.crush_choose_rule_ints() != CHOOSE_RULE_INTS
+                    or lib.crush_choose_max_slots() != CHOOSE_MAX_SLOTS):
+                raise KernelBuildError("crush_choose.cu's slots, rule or row differ from "
+                                       "CHOOSE_MAX_WIDTH / CHOOSE_RULE_INTS / "
+                                       "CHOOSE_MAX_SLOTS")
             _LIBS[name] = lib
     return _LIBS[name]
 

@@ -10,8 +10,8 @@ Run from the root of the repository on a machine with a card and
     python3 -m ceph_tpu_torch.tools.gf_matmul_sweep [--kernel K] --sass OUT_DIR [--mt N]
 
 ``--kernel`` picks ``gf_matmul`` (the default) or ``bitmatrix_xor``;
-``crush_straw2`` takes ``--time``, ``--compare`` and ``--sass``,
-``crush_choose`` only ``--sass``.
+``crush_straw2`` and ``crush_choose`` take ``--time``, ``--compare`` and
+``--sass``, ``crush_choose`` also ``--sweep``.
 
 ``--time`` checks the kernel's public wrapper bit-exact against the
 plain version and times it through that wrapper (CUDA events, median
@@ -31,7 +31,19 @@ output (80 set bits against cauchy_good's 888: the ring and the stores
 with little XOR work) over the same lanes, and the encode over 4096
 lanes.  ``crush_straw2``: checked bit-exact against ``straw2_plain`` and
 timed on the row of ``CrushMap.flat(64)`` (the package's own tables)
-over 1,000,000 lanes with random r, 64M draws.
+over 1,000,000 lanes with random r, 64M draws.  ``crush_choose``: the
+six cases of ``chip_smoke.py`` phases 7 and 8 (:func:`choose_cases`:
+flat_64 firstn and indep, chooseleaf_16x4 and the 8 x 16 x 12 racks map
+over x = 0..999,999; the replicated and the ISA k=8 m=3 pool of
+``synthetic_map(10_240, 16)`` over their 65,536 PGs), each checked
+bit-exact against ``mapper_torch.crush_choose_plain`` (the step
+engine's loops, their draw on ``crush_straw2``), its draws counted and
+its time set beside the bound of those draws
+(:data:`INSTRUCTIONS_PER_DRAW` SASS instructions a draw at
+:data:`ISSUE_LANES_PER_CLOCK_PER_SM`); in a package whose wrapper picks
+a tile (``crush_cuda.choose_tile``), also the tile it picks, the sizes
+it reads (the take row, the widest row on the rule's path, their
+greatest common divisor) and the time at each tile.
 
 ``--compare TREE`` runs ``--time`` in four processes, in turns: the
 package in TREE (for example an earlier commit unpacked with
@@ -42,13 +54,20 @@ lanes)``, ``bitmatrix_table(bitmatrix, device)`` and
 ``mapper_torch_hier.tables_for(cmap, device).rows``,
 ``crush_cuda.crush_straw2(rows, x, rows_of_lanes, r)`` and
 ``crush_torch.straw2_plain`` (every tree since the CRUSH slice), so the
-draw of an earlier design is timed beside this one.
+draw of an earlier design is timed beside this one; for
+``crush_choose``, ``fused_rule``, ``reweight_lanes``,
+``crush_cuda.crush_choose(T, rule, x, reweight, draws)``,
+``crush_choose_plain`` and ``osd.churn``'s ``synthetic_map``,
+``_pps_vec`` and ``_int32_bits`` (every tree since the first
+``crush_choose``).
 
 ``--sweep`` builds the kernel's source once per variant of its tuning
 constants (written into copies of the source, all ``nvcc`` processes
 started together; a ``gf_matmul`` variant of the plan's capacity packs
 its tables to match), and times each variant through the wrapper as
-``--time`` does, the variants forward and then backward.
+``--time`` does, the variants forward and then backward; a
+``crush_choose`` variant (threads a block, the blocks an SM holds at
+least) is checked and timed at each tile on the six cases.
 
 ``--sass`` writes ``cuobjdump -sass`` of the built library to
 ``OUT_DIR/<kernel>.sass`` and prints the opcode counts of one
@@ -56,9 +75,14 @@ instantiation: the w=8 kernel of an output tile of ``--mt`` (default 3,
 ISA's RS(8,3)) for ``gf_matmul``, the output tile of ``--mt`` (default
 32, cauchy_good k=10 m=4) for ``bitmatrix_xor``, the one kernel for
 ``crush_straw2`` (the dump's addresses locate a draw's path: the item
-loop and its normalisation branch, which ``chip_smoke.py``'s
-``INSTRUCTIONS_PER_DRAW`` counts; ``CALL`` opcodes show a divide
-subroutine) and for ``crush_choose``.
+loop and its normalisation branch, which :data:`INSTRUCTIONS_PER_DRAW`
+counts; ``CALL`` opcodes show a divide subroutine) and each
+instantiation of ``crush_choose`` (a tile G and the take row staged or
+not), with ``ptxas``'s registers and stack frame of each function and
+the local-memory loads and stores (``LDL``, ``STL``) of each; a
+``crush_choose`` dump also counts ``crush_straw2``'s draw loop from its
+dump: the loop's instructions less its normalisation branch's, which
+is :data:`INSTRUCTIONS_PER_DRAW` while the draw is unchanged.
 With
 ``PYTHONPATH=TREE python3 ceph_tpu_torch/tools/gf_matmul_sweep.py``
 every mode runs on TREE's package instead.
@@ -177,9 +201,34 @@ KERNELS = {
          (512, 8, 8, 4, 3)],
         "bitmatrix_xor_kernelILi{mt}E", 32),
 }
-# the CRUSH kernels, which --sass takes (name -> the kernel's symbol);
-# crush_straw2 also takes --time and --compare (time_straw2)
+# the CRUSH kernels, which --sass, --time and --compare take (name -> the
+# kernel's symbol)
 CRUSH_SYMBOLS = {"crush_straw2": "crush_straw2_kernel", "crush_choose": "crush_choose_kernel"}
+# the CRUSH kernels' bound counts SASS instructions over the issue rate:
+# each SM's four schedulers issue at most one warp instruction (32 lanes)
+# a clock each, whatever the pipe
+ISSUE_LANES_PER_CLOCK_PER_SM = 128
+# SASS instructions of one draw on flat_64's row (w > 0) in nvcc's sm_90a
+# build on the card's machine, read from the dump of `--kernel
+# crush_straw2 --sass`: the item loop (0x0b30-0x1840) 210, less the
+# normalisation (0x1470-0x14c0, 6; only u + 1 < 0x8000 takes it, about
+# half the draws, so leaving it out keeps the count a floor).  The divide
+# by reciprocal is inline (three IMAD.WIDE and an IMAD.WIDE.X for the
+# high product, then the correction); the dump has no CALL.
+# crush_choose's draws are counted at the same figure: they run the same
+# straw2_q (csrc/crush_draw.cuh), so the bound reads the same work
+# whatever implements it (`--kernel crush_choose --sass` recounts
+# crush_straw2's loop as a guard).
+INSTRUCTIONS_PER_DRAW = 210 - 6
+# crush_choose's tuning constants for --sweep (threads a block, blocks an
+# SM holds at least) and their variants, the source's own first
+CHOOSE_TUNING = ("kThreads", "kMinBlocks")
+CHOOSE_VARIANTS = [(1024, 1), (512, 2), (256, 4)]
+# phase 7: x = 0..CRUSH_X - 1; phase 8: a 10k-OSD map of 640 hosts of 16,
+# two pools of CHURN_PG_NUM PGs
+CRUSH_X = 1_000_000
+CHURN_OSDS, CHURN_OSDS_PER_HOST, CHURN_PG_NUM = 10_240, 16, 65536
+CHURN_EC = {"plugin": "isa", "k": "8", "m": "3"}
 
 
 def _time(fn, reps: int, batch: int = 20) -> float:
@@ -264,6 +313,123 @@ def time_straw2(reps: int) -> None:
                       "G_draws_per_s": 64 * n / ms / 1e6}), flush=True)
 
 
+def crush_choose_maps(rng) -> list:
+    """``chip_smoke.py`` phase 7's single-step cases: (name, map, rule,
+    numrep, weights or None).  ``CrushMap.flat(64)`` with one firstn and
+    one indep rule; ``bench.py``'s chooseleaf_16x4 (16 hosts of 4
+    devices, chooseleaf firstn over hosts); a production-sized map of 8
+    racks x 16 hosts x 12 devices (1536 OSDs, device weights 0.5 to 4
+    from ``rng``, 8 devices out and 4 at half), chooseleaf firstn over
+    hosts."""
+    from ceph_tpu_torch.crush.map import CRUSH_BUCKET_STRAW2, CrushMap
+
+    cases = []
+    flat = CrushMap.flat(64)
+    cases.append(("flat_64 firstn", flat, flat.add_simple_rule(flat.root_id(), 0), 3, None))
+    cases.append(("flat_64 indep", flat,
+                  flat.add_simple_rule(flat.root_id(), 0, indep=True), 3, None))
+    h = CrushMap.hierarchical([list(range(4 * i, 4 * i + 4)) for i in range(16)])
+    cases.append(("chooseleaf_16x4", h, h.add_simple_rule(h.root_id("default"), 1), 3, None))
+    big = CrushMap()
+    big.type_names.update({1: "host", 2: "rack", 3: "root"})
+    dev_id, racks = 0, []
+    for rk in range(8):
+        hosts = []
+        for hs in range(16):
+            devs = list(range(dev_id, dev_id + 12))
+            dev_id += 12
+            ws = [int(w) for w in rng.integers(0x8000, 0x40000, size=12)]  # 0.5 to 4
+            hosts.append(big.make_bucket(CRUSH_BUCKET_STRAW2, 1, devs, ws,
+                                         name=f"rack{rk}-host{hs}"))
+        racks.append(big.make_bucket(CRUSH_BUCKET_STRAW2, 2, hosts,
+                                     [big.buckets[b].weight for b in hosts], name=f"rack{rk}"))
+    big.make_bucket(CRUSH_BUCKET_STRAW2, 3, racks, [big.buckets[b].weight for b in racks],
+                    name="default")
+    picked = rng.choice(dev_id, size=12, replace=False)
+    weights = big.get_weights(out=[int(d) for d in picked[:8]],
+                              reweight={int(d): 0.5 for d in picked[8:]})
+    cases.append(("racks_8x16x12 chooseleaf", big, big.add_simple_rule(big.root_id(), 1),
+                  3, weights))
+    return cases
+
+
+def pool_lanes(m, pool, dev):
+    """What ``ChurnPlanner.map_pool`` hands the mapper for ``pool`` of
+    OSDMap ``m``: (rule, int32 lanes of the PGs' pps on ``dev``, the
+    in/out weights)."""
+    from ceph_tpu_torch.osd import churn
+
+    ruleno = m.crush.find_rule(pool.crush_ruleset, pool.type, pool.size)
+    seeds = torch.arange(pool.pg_num, dtype=torch.int64, device=dev)
+    return ruleno, churn._int32_bits(churn._pps_vec(pool, seeds)), list(m.osd_weight)
+
+
+def choose_cases(dev, rng) -> dict:
+    """``crush_choose``'s six cases: name -> (tables, rule, lanes,
+    reweight) on ``dev``; phase 7's four over x = 0..CRUSH_X - 1 and
+    phase 8's two pools over their PGs."""
+    from ceph_tpu_torch.crush.mapper_torch_hier import fused_rule, reweight_lanes, tables_for
+    from ceph_tpu_torch.osd.churn import synthetic_map
+
+    x = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
+    cases = [(name, cmap, ruleno, numrep, x, weights)
+             for name, cmap, ruleno, numrep, weights in crush_choose_maps(rng)]
+    m = synthetic_map(CHURN_OSDS, CHURN_OSDS_PER_HOST, replicated=(3, CHURN_PG_NUM),
+                      ec=(CHURN_EC, CHURN_PG_NUM))
+    for pool in m.pools.values():
+        ruleno, lanes, weights = pool_lanes(m, pool, dev)
+        cases.append((f"pool {pool.name} ({pool.pg_num} PGs x {pool.size})", m.crush, ruleno,
+                      pool.size, lanes, weights))
+    return {name: (tables_for(cmap, dev), fused_rule(cmap, ruleno, numrep), lanes,
+                   reweight_lanes(cmap, weights, dev))
+            for name, cmap, ruleno, numrep, lanes, weights in cases}
+
+
+def issue_rate(dev) -> float:
+    """Thread instructions the card issues a second at most: SMs x
+    ISSUE_LANES_PER_CLOCK_PER_SM x the maximum SM clock."""
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60, check=True).stdout
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * ISSUE_LANES_PER_CLOCK_PER_SM * float(clock.split()[0]) * 1e6
+
+
+def time_choose(reps: int) -> None:
+    """``crush_choose`` on its six cases (:func:`choose_cases`): checked
+    against ``crush_choose_plain``, its draws counted, timed in batches
+    of 20 and one launch a sample beside its bound; with a wrapper that
+    picks a tile, at each tile too."""
+    from ceph_tpu_torch.crush import mapper_torch
+    from ceph_tpu_torch.ops import crush_cuda
+
+    dev = torch.device("cuda")
+    package = str(Path(gf_cuda.__file__).parents[2])
+    tiled = hasattr(crush_cuda, "choose_tile")
+    rate = issue_rate(dev)
+    for name, (T, rule, x, rw) in choose_cases(dev, np.random.default_rng(SEED)).items():
+        counted = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = crush_cuda.crush_choose(T, rule, x, rw, counted)
+        want = mapper_torch.crush_choose_plain(T, rule, x, rw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"crush_choose {name}: differs from crush_choose_plain")
+        draws = int(counted.item())
+        ms = _time(lambda: crush_cuda.crush_choose(T, rule, x, rw), reps)
+        bound = draws * INSTRUCTIONS_PER_DRAW / rate * 1e3
+        row = {"package": package, "kernel": "crush_choose", "case": name,
+               "lanes": x.shape[0], "width": rule.width, "draws": draws, "ms": ms,
+               "ms_one_launch": _time(lambda: crush_cuda.crush_choose(T, rule, x, rw),
+                                      5 * reps, batch=1),
+               "bound_ms": bound, "share_of_bound": bound / ms}
+        if tiled:
+            row.update(tile=crush_cuda.choose_tile(T, rule), take_row=T.sizes[rule.take_row],
+                       widest_row=rule.widest, row_gcd=rule.row_gcd)
+            row["ms_by_tile"] = {
+                g: _time(lambda: crush_cuda.crush_choose(T, rule, x, rw, tile=g), reps)
+                for g in gf_cuda.CHOOSE_TILES}
+        print(json.dumps(row), flush=True)
+
+
 def compare(name: str, tree: Path, reps: int) -> None:
     here = Path(gf_cuda.__file__).resolve().parents[2]
     for root in (tree.resolve(), here, here, tree.resolve()):
@@ -273,14 +439,14 @@ def compare(name: str, tree: Path, reps: int) -> None:
                         "--reps", str(reps)], env=env, check=True)
 
 
-def _variant_source(kernel: Kernel, v, out_dir: Path) -> Path:
-    source = gf_cuda.SOURCES[kernel.name]
+def _variant_source(name: str, tuning: tuple, v, out_dir: Path) -> Path:
+    source = gf_cuda.SOURCES[name]
     text = (gf_cuda.CSRC / source).read_text()
-    for name, value in zip(kernel.tuning, v):
-        text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
+    for const, value in zip(tuning, v):
+        text, n = re.subn(rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};",
                           text)
         if n != 1:
-            raise ValueError(f"{source} has no single constant {name}")
+            raise ValueError(f"{source} has no single constant {const}")
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / source).write_text(text)
     return out_dir / source
@@ -297,13 +463,23 @@ def _registers(kernel: Kernel, log: str) -> str:
     return "?"
 
 
-def sweep(kernel: Kernel, reps: int) -> None:
+class _Lib:
+    """Stands in for kernel ``name``'s loaded library inside its wrapper."""
+
+    def __init__(self, name: str, fn):
+        setattr(self, f"{name}_launch", fn)
+
+
+def _build_variants(name: str, tuning: tuple, variants: list) -> dict:
+    """Build kernel ``name``'s source once per variant of its tuning
+    constants, all ``nvcc`` processes started together: tag -> (variant,
+    launch function, compiler log)."""
     nvcc = gf_cuda._nvcc()
     procs = {}
-    for v in kernel.variants:
-        tag = "_".join(f"{n}{x}" for n, x in zip(kernel.tuning, v))
-        src = _variant_source(kernel, v, SWEEP_DIR / kernel.name / tag)
-        lib = src.with_name(f"lib{kernel.name}.so")
+    for v in variants:
+        tag = "_".join(f"{n}{x}" for n, x in zip(tuning, v))
+        src = _variant_source(name, tuning, v, SWEEP_DIR / name / tag)
+        lib = src.with_name(f"lib{name}.so")
         cmd = [nvcc, *gf_cuda.NVCC_FLAGS, "-I", str(gf_cuda.CSRC), "-o", str(lib), str(src)]
         procs[tag] = (v, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True), lib)
@@ -312,25 +488,26 @@ def sweep(kernel: Kernel, reps: int) -> None:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise gf_cuda.KernelBuildError(f"{tag}:\n{log}")
+        fn = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = gf_cuda._ARGTYPES[name]
+        libs[tag] = (v, fn, log)
+    return libs
+
+
+def sweep(kernel: Kernel, reps: int) -> None:
+    libs = _build_variants(kernel.name, kernel.tuning, kernel.variants)
+    for tag, (_v, _fn, log) in libs.items():
         print(json.dumps({"built": tag, f"mt{kernel.mt}_registers": _registers(kernel, log)}),
               flush=True)
-        fn = getattr(ctypes.CDLL(str(lib)), f"{kernel.name}_launch")
-        fn.restype = ctypes.c_int
-        fn.argtypes = gf_cuda._ARGTYPES[kernel.name]
-        libs[tag] = (v, fn)
-
-    class _Lib:  # stands in for the loaded library inside the wrapper
-        def __init__(self, fn):
-            setattr(self, f"{kernel.name}_launch", fn)
-
     cases = _cases(kernel)
     tags = list(libs)
     plan = (gf_cuda.PLAN_ROWS, gf_cuda.PLAN_MASKS, gf_cuda.PLAN_BYTES)
     times: dict[tuple[str, str], list] = {}
     try:
         for tag in tags + tags[::-1]:
-            v, fn = libs[tag]
-            gf_cuda._LIBS[kernel.name] = _Lib(fn)
+            v, fn, _log = libs[tag]
+            gf_cuda._LIBS[kernel.name] = _Lib(kernel.name, fn)
             if kernel.name == "gf_matmul":
                 rows = v[-1]
                 gf_cuda.PLAN_ROWS, gf_cuda.PLAN_MASKS = rows, 8 * rows
@@ -345,28 +522,136 @@ def sweep(kernel: Kernel, reps: int) -> None:
                           "ms_one_launch": [t[1] for t in ts]}), flush=True)
 
 
-def sass(name: str, symbol: str, out_dir: Path, mt: int | None) -> None:
-    out_dir.mkdir(parents=True, exist_ok=True)
+def sweep_choose(reps: int) -> None:
+    """``crush_choose``'s variants of CHOOSE_TUNING, each checked against
+    ``crush_choose_plain`` and timed at every tile on the six cases, the
+    variants forward and then backward."""
+    from ceph_tpu_torch.crush import mapper_torch
+    from ceph_tpu_torch.ops import crush_cuda
+
+    libs = _build_variants("crush_choose", CHOOSE_TUNING, CHOOSE_VARIANTS)
+    for tag, (_v, _fn, log) in libs.items():
+        print(json.dumps({"built": tag, "ptxas": {
+            fn.split("crush_choose_kernel")[-1][:12]: stats
+            for fn, stats in _ptxas(log).items() if "crush_choose_kernel" in fn}}), flush=True)
+    dev = torch.device("cuda")
+    cases = choose_cases(dev, np.random.default_rng(SEED))
+    want = {name: mapper_torch.crush_choose_plain(T, rule, x, rw)
+            for name, (T, rule, x, rw) in cases.items()}
+    tags = list(libs)
+    times: dict[tuple[str, str, int], list] = {}
+    try:
+        for tag in tags + tags[::-1]:
+            gf_cuda._LIBS["crush_choose"] = _Lib("crush_choose", libs[tag][1])
+            for name, (T, rule, x, rw) in cases.items():
+                for g in gf_cuda.CHOOSE_TILES:
+                    got = crush_cuda.crush_choose(T, rule, x, rw, tile=g)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want[name]):
+                        raise AssertionError(f"{tag} {name} tile {g}: differs from "
+                                             "crush_choose_plain")
+                    times.setdefault((tag, name, g), []).append(_time(
+                        lambda: crush_cuda.crush_choose(T, rule, x, rw, tile=g), reps))
+    finally:
+        gf_cuda._LIBS.pop("crush_choose", None)
+    for tag in tags:
+        for name in cases:
+            print(json.dumps({"variant": tag, "case": name, "ms_by_tile": {
+                g: times[tag, name, g] for g in gf_cuda.CHOOSE_TILES}}), flush=True)
+
+
+def _dump(name: str) -> str:
+    """``cuobjdump -sass`` of kernel ``name``'s library, built if need be."""
     cuobjdump = shutil.which("cuobjdump") or str(Path(gf_cuda._nvcc()).parent / "cuobjdump")
     gf_cuda.build((name,))
-    text = subprocess.run([cuobjdump, "-sass", str(gf_cuda.library_path(name))],
+    return subprocess.run([cuobjdump, "-sass", str(gf_cuda.library_path(name))],
                           capture_output=True, text=True, check=True).stdout
-    (out_dir / f"{name}.sass").write_text(text)
-    sym = re.compile(r"Function : \S*" + symbol)
-    body, inside = [], False
+
+
+def _functions(text: str) -> dict:
+    """The dump's functions: mangled name -> [(address, opcode, line)]."""
+    funcs, body = {}, None
     for line in text.splitlines():
-        if "Function :" in line:
-            inside = bool(sym.search(line))
-        elif inside:
-            op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
-            if op:
-                body.append(op.group(2).split(".")[0])
-    print(json.dumps({"package": str(Path(gf_cuda.__file__).parents[2]),
-                      "kernel": name, "mt": mt, "instructions": len(body),
-                      "by_opcode": dict(Counter(body).most_common())}), flush=True)
-    for line in gf_cuda.build_log(name).splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(json.dumps({"ptxas": line.strip()}), flush=True)
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            body = funcs.setdefault(head.group(1), [])
+            continue
+        op = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
+        if op and body is not None:
+            body.append((int(op.group(1), 16), op.group(3).split(".")[0], line))
+    return funcs
+
+
+def _ptxas(log: str) -> dict:
+    """ptxas -v's figures per function: mangled name -> registers, stack
+    frame, spill stores and loads (bytes)."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            fn = out.setdefault(m.group(1), {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and fn is not None:
+            fn.update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                      spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["registers"] = int(m.group(1))
+    return out
+
+
+def draw_loop(body: list) -> dict:
+    """crush_straw2's item loop in its dump: the longest backward branch's
+    span (instructions from its target to the branch), the forward branch
+    inside it over the normalisation (the one block with ``FLO``, the
+    count of leading zeros; instructions strictly between branch and
+    target) and the draw, the first less the second."""
+    where = {addr: i for i, (addr, _op, _line) in enumerate(body)}
+    loops = []
+    for i, (addr, op, line) in enumerate(body):
+        target = re.search(r"BRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)", line)
+        if op == "BRA" and target and int(target.group(1), 16) < addr:
+            start = where.get(int(target.group(1), 16))
+            if start is not None:
+                loops.append((i - start + 1, start, i))
+    if not loops:
+        return {"loop": None}
+    span, start, end = max(loops)
+    skips = []
+    for i in range(start, end + 1):
+        addr, op, line = body[i]
+        target = re.search(r"BRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)", line)
+        if op == "BRA" and target and addr < int(target.group(1), 16):
+            stop = where.get(int(target.group(1), 16), end)
+            if any(o == "FLO" for _a, o, _l in body[i + 1:stop]):
+                skips.append(stop - i - 1)
+    normalisation = min(skips) if skips else None
+    return {"loop": span, "normalisation": normalisation,
+            "draw": span - normalisation if normalisation is not None else None,
+            "counted_in_bound": INSTRUCTIONS_PER_DRAW}
+
+
+def sass(name: str, symbol: str, out_dir: Path, mt: int | None) -> None:
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = _dump(name)
+    (out_dir / f"{name}.sass").write_text(text)
+    stats = _ptxas(gf_cuda.build_log(name))
+    package = str(Path(gf_cuda.__file__).parents[2])
+    for fn, body in _functions(text).items():
+        if not re.search(symbol, fn):
+            continue
+        ops = Counter(op for _a, op, _l in body)
+        print(json.dumps({"package": package, "kernel": name, "function": fn, "mt": mt,
+                          "instructions": len(body), "ptxas": stats.get(fn, {}),
+                          "local_memory": {"LDL": ops["LDL"], "STL": ops["STL"]},
+                          "by_opcode": dict(ops.most_common())}), flush=True)
+        if name == "crush_straw2":
+            print(json.dumps({"crush_straw2_draw": draw_loop(body)}), flush=True)
+    if name == "crush_choose":  # the shared draw, unchanged: crush_straw2's loop recounted
+        for fn, body in _functions(_dump("crush_straw2")).items():
+            if CRUSH_SYMBOLS["crush_straw2"] in fn:
+                print(json.dumps({"crush_straw2_draw": draw_loop(body)}), flush=True)
 
 
 def main(argv=None) -> int:
@@ -383,18 +668,19 @@ def main(argv=None) -> int:
         print("gf_matmul_sweep: CUDA is not available", file=sys.stderr)
         return 2
     if args.kernel in CRUSH_SYMBOLS:
-        timed = args.kernel == "crush_straw2"
-        if args.sweep or (not timed and (args.time or args.compare)) or not (
-                args.sass or args.time or args.compare):
-            ap.error(f"--kernel {args.kernel} takes "
-                     + ("--time, --compare and --sass" if timed else "only --sass"))
+        if (args.sweep and args.kernel != "crush_choose") or not (
+                args.sass or args.time or args.compare or args.sweep):
+            ap.error(f"--kernel {args.kernel} takes --time, --compare and --sass"
+                     + (" and --sweep" if args.kernel == "crush_choose" else ""))
         print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
         if args.sass:
             sass(args.kernel, CRUSH_SYMBOLS[args.kernel], args.sass, None)
         if args.time:
-            time_straw2(args.reps)
+            (time_straw2 if args.kernel == "crush_straw2" else time_choose)(args.reps)
         if args.compare:
             compare(args.kernel, args.compare, args.reps)
+        if args.sweep:
+            sweep_choose(args.reps)
         return 0
     kernel = KERNELS[args.kernel]
     print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)

@@ -65,9 +65,12 @@ Phases, each fatal on any mismatch or exception:
    version (flat_64's row over 1M lanes; rows with zero weights, one
    item, none, weights from 0x100 to 0x100000; the rows of a 1536-OSD
    map; X = 1, 31 and 1M+7; random r), timed beside its bound; then
-   ``crush_choose`` on flat_64 firstn over 1M lanes bit-exact against
-   its plain version (the step engine's loops with ``straw2_plain``),
-   timed beside the bound of the draws it counted; then, with the launch
+   ``crush_choose`` on each of the four single-step cases below over 1M
+   lanes bit-exact against its plain version (the step engine's loops
+   with ``straw2_plain``), timed beside the bound of the draws it
+   counted, with the tile of threads a lane it took, and on two edges of
+   its launch (32 slots on the racks map over 65,536 lanes; a take row
+   of 12,000 items, too wide to stage, over 8192); then, with the launch
    counts set to 0, the main path: ``CrushTester`` (the ``crushtool
    --test`` engine) over x = 0..999,999 on flat_64 firstn and indep,
    chooseleaf_16x4, 8 racks x 16 hosts x 12 devices (each one
@@ -91,7 +94,11 @@ Phases, each fatal on any mismatch or exception:
    must come from the device path, ``crush_choose`` must have launched
    (both pools' rules are single-step), every plan must remap PGs, and
    for the down and out events only PGs that held the host's OSDs
-   before or hold them after may remap.  Then ``map_pool`` through the
+   before or hold them after may remap.  Then each pool's
+   ``crush_choose`` launch alone (65,536 lanes of 3 and 11 slots under
+   the 640-item root), bit-exact against its plain version with the
+   draw on ``crush_straw2`` and timed beside the bound of its draws.
+   Then ``map_pool`` through the
    fused and the step routes in turns; the whole pre-churn and
    out-event mappings and the out event's plan equal the plain route's,
    every event's mappings and plan equal the step route's, 64 PGs a
@@ -411,22 +418,6 @@ OPS_PER_DOUBLING = 4
 # checked against the scalar mapper per case
 CRUSH_X = 1_000_000
 CRUSH_SAMPLE = 4096
-# crush_straw2's bound counts SASS instructions over the issue rate: each
-# SM's four schedulers issue at most one warp instruction (32 lanes) a
-# clock each, whatever the pipe
-ISSUE_LANES_PER_CLOCK_PER_SM = 128
-# SASS instructions of one draw on flat_64's row (w > 0) in nvcc's sm_90a
-# build on the card's machine, read from the dump of `gf_matmul_sweep
-# --kernel crush_straw2 --sass`: the item loop (0x0b30-0x1840) 210, less
-# the normalisation (0x1470-0x14c0, 6; only u + 1 < 0x8000 takes it, about
-# half the draws, so leaving it out keeps the count a floor).  The divide
-# by reciprocal is inline (three IMAD.WIDE and an IMAD.WIDE.X for the high
-# product, then the correction); the dump has no CALL.  crush_choose's
-# draws are counted at the same figure: they run the same straw2_slot
-# (csrc/crush_draw.cuh), whose inlined loops in its dump are 213-221
-# instructions with the normalisation (`--kernel crush_choose --sass`),
-# so the figure keeps its bound a floor too.
-INSTRUCTIONS_PER_DRAW = 210 - 6
 
 # phase 8: a 10k-OSD cluster (tests/test_churn.py:200's shape, 640 hosts
 # of 16) whose two pools sit at Ceph's mon_max_pool_pg_num default, 65536
@@ -1276,46 +1267,19 @@ def run_osd_engine(dev, rng, figures: dict | None = None) -> dict:
 def crush_cases(rng):
     """The phase-7 maps and rules: (name, map, rule, numrep, weights).
 
-    ``CrushMap.flat(64)`` with one firstn and one indep rule;
-    ``bench.py``'s chooseleaf_16x4 (16 hosts of 4 devices, chooseleaf
-    firstn over hosts); a production-sized map of 8 racks x 16 hosts x 12
-    devices (1536 OSDs, uneven device weights, 12 devices reweighted out
-    or down), chooseleaf firstn over hosts; and the chained LRC rule of
-    ``tests/test_crush_vec.py`` on its rack map (choose 2 racks, then
-    chooseleaf 2 hosts each: the rule's four positions)."""
+    The four single-step cases of ``gf_matmul_sweep.crush_choose_maps``
+    (``CrushMap.flat(64)`` firstn and indep; ``bench.py``'s
+    chooseleaf_16x4; 8 racks x 16 hosts x 12 devices, 1536 OSDs with
+    uneven device weights, 12 reweighted out or down, chooseleaf firstn
+    over hosts), and the chained LRC rule of ``tests/test_crush_vec.py``
+    on its rack map (choose 2 racks, then chooseleaf 2 hosts each: the
+    rule's four positions)."""
     from ceph_tpu_torch.crush.map import (
         CRUSH_BUCKET_STRAW2, CRUSH_RULE_CHOOSE_INDEP, CRUSH_RULE_CHOOSELEAF_INDEP,
         CRUSH_RULE_EMIT, CRUSH_RULE_TAKE, CrushMap, Rule)
+    from ceph_tpu_torch.tools.gf_matmul_sweep import crush_choose_maps
 
-    cases = []
-    flat = CrushMap.flat(64)
-    cases.append(("flat_64 firstn", flat, flat.add_simple_rule(flat.root_id(), 0), 3, None))
-    cases.append(("flat_64 indep", flat,
-                  flat.add_simple_rule(flat.root_id(), 0, indep=True), 3, None))
-    h = CrushMap.hierarchical([list(range(4 * i, 4 * i + 4)) for i in range(16)])
-    cases.append(("chooseleaf_16x4", h, h.add_simple_rule(h.root_id("default"), 1), 3, None))
-
-    big = CrushMap()
-    big.type_names.update({1: "host", 2: "rack", 3: "root"})
-    dev_id, racks = 0, []
-    for rk in range(8):
-        hosts = []
-        for hs in range(16):
-            devs = list(range(dev_id, dev_id + 12))
-            dev_id += 12
-            ws = [int(w) for w in rng.integers(0x8000, 0x40000, size=12)]  # 0.5 to 4
-            hosts.append(big.make_bucket(CRUSH_BUCKET_STRAW2, 1, devs, ws,
-                                         name=f"rack{rk}-host{hs}"))
-        racks.append(big.make_bucket(CRUSH_BUCKET_STRAW2, 2, hosts,
-                                     [big.buckets[b].weight for b in hosts], name=f"rack{rk}"))
-    big.make_bucket(CRUSH_BUCKET_STRAW2, 3, racks, [big.buckets[b].weight for b in racks],
-                    name="default")
-    picked = rng.choice(dev_id, size=12, replace=False)
-    weights = big.get_weights(out=[int(d) for d in picked[:8]],
-                              reweight={int(d): 0.5 for d in picked[8:]})
-    cases.append(("racks_8x16x12 chooseleaf", big, big.add_simple_rule(big.root_id(), 1),
-                  3, weights))
-
+    cases = crush_choose_maps(rng)
     lrc = CrushMap()  # tests/test_crush_vec.py _build_racks(): 2 racks x 3 hosts
     lrc.type_names.update({1: "host", 2: "rack", 3: "root"})
     lrng = np.random.default_rng(7)
@@ -1418,6 +1382,46 @@ def crush_route(route: str):
         mapper_torch._engine, crush_torch.straw2 = engine, draw
 
 
+def time_choose(name, T, rule, x, rw, bound, per_draw, route="plain") -> tuple:
+    """``crush_choose`` on one case: checked bit-exact against
+    ``crush_choose_plain`` (the step engine's loops; under ``route``
+    "plain" their draw is ``straw2_plain``, under "fused" the
+    ``crush_straw2`` kernel), its draws counted, timed one launch a
+    sample and in batches of 20 beside the bound of its draws
+    (``per_draw`` SASS instructions a draw) and its bytes (x in, each
+    slot out, the take row and the reweight vector read once).  Returns
+    (max_abs_err, ms of one launch, plain ms, bound ms, bound by)."""
+    import torch
+
+    from ceph_tpu_torch.crush import mapper_torch
+    from ceph_tpu_torch.ops import crush_cuda
+
+    counted = torch.zeros(1, dtype=torch.int64, device=x.device)
+    got = crush_cuda.crush_choose(T, rule, x, rw, counted)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with crush_route(route):
+        start.record()
+        want = mapper_torch.crush_choose_plain(T, rule, x, rw)
+        end.record()
+    torch.cuda.synchronize()
+    check_equal(f"crush_choose {name}, {x.shape[0]} lanes", got, want)
+    plain_ms = start.elapsed_time(end)
+    draws = int(counted.item())
+    ms = time_cuda(lambda: crush_cuda.crush_choose(T, rule, x, rw), reps=30)
+    batched = time_cuda(lambda: crush_cuda.crush_choose(T, rule, x, rw), reps=10, batch=20)
+    nbytes = x.shape[0] * 4 * (1 + rule.width) + T.sizes[rule.take_row] * 24 + rw.numel() * 4
+    b_ms, b_by = bound(nbytes, draws * per_draw)
+    log(f"  crush_choose on {name} over {x.shape[0]} lanes, tile {crush_cuda.choose_tile(T, rule)} "
+        f"(rows of {T.sizes[rule.take_row]} at the take, {rule.widest} at most, their gcd "
+        f"{rule.row_gcd}): bit-exact against "
+        f"crush_choose_plain ({route} route); {draws} draws counted "
+        f"({draws / x.shape[0]:.4g} a lane); {ms} ms one launch a sample, {batched} ms in "
+        f"batches of 20, plain ({route} route) {plain_ms} ms; bound "
+        f"{b_ms} ms by {b_by} ({nbytes} bytes; {per_draw} SASS instructions a draw); "
+        f"{b_ms / batched:.1%} of bound in batches")
+    return max_abs_err(got, want), ms, plain_ms, b_ms, b_by
+
+
 def run_crush(dev, rng) -> list[dict]:
     """Phase 7: the ``crush_straw2`` and ``crush_choose`` kernels against
     their plain versions, the main path through ``CrushTester`` at x =
@@ -1428,11 +1432,13 @@ def run_crush(dev, rng) -> list[dict]:
 
     from ceph_tpu_torch.crush import mapper, mapper_torch
     from ceph_tpu_torch.crush.encoding import crush_to_dict
-    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE, CrushMap
     from ceph_tpu_torch.crush.mapper_torch_hier import fused_rule, reweight_lanes, tables_for
     from ceph_tpu_torch.crush.tester import CrushTester
     from ceph_tpu_torch.ops import crush_cuda, crush_torch, gf_cuda
     from ceph_tpu_torch.tools import crushtool
+    from ceph_tpu_torch.tools.gf_matmul_sweep import (
+        INSTRUCTIONS_PER_DRAW, ISSUE_LANES_PER_CLOCK_PER_SM)
 
     cases = crush_cases(rng)
     synthetic, big_rows = straw2_rows_for_checks(dev, rng, cases[3][1])
@@ -1483,37 +1489,32 @@ def run_crush(dev, rng) -> list[dict]:
         "bound_by": b_by, "library_ms": None,
     }
 
-    # 2. crush_choose against its plain version on flat_64 firstn at 1M
-    # lanes, bit-exact, timed beside the bound of the draws it counted
-    _name, flat, flat_rule, numrep, _w = cases[0]
-    T, rule = tables_for(flat, dev), fused_rule(flat, flat_rule, numrep)
-    rw = reweight_lanes(flat, None, dev)
-    counted = torch.zeros(1, dtype=torch.int64, device=dev)
-    got = crush_cuda.crush_choose(T, rule, flat_x, rw, counted)
-    with crush_route("plain"):
-        want = mapper_torch.crush_choose_plain(T, rule, flat_x, rw)
-    torch.cuda.synchronize()
-    check_equal("crush_choose flat_64 firstn, 1M lanes", got, want)
-    choose_err = max_abs_err(got, want)
-    choose_draws = int(counted.item())
-    choose_ms = time_cuda(lambda: crush_cuda.crush_choose(T, rule, flat_x, rw), reps=30)
-    choose_batched = time_cuda(lambda: crush_cuda.crush_choose(T, rule, flat_x, rw),
-                               reps=10, batch=20)
-
-    def choose_plain():
-        with crush_route("plain"):
-            mapper_torch.crush_choose_plain(T, rule, flat_x, rw)
-
-    choose_plain_ms = time_cuda(choose_plain, reps=3, warmup=1)
-    # x in, each slot out, the take row and the reweight vector read once
-    choose_bytes = CRUSH_X * 4 * (1 + rule.width) + T.sizes[rule.take_row] * 24 + rw.numel() * 4
-    c_ms, c_by = bound(choose_bytes, choose_draws * INSTRUCTIONS_PER_DRAW)
-    log(f"  crush_choose on flat_64 firstn over {CRUSH_X} lanes: bit-exact against "
-        f"crush_choose_plain; {choose_draws} draws counted ({choose_draws / CRUSH_X:.4g} a lane; "
-        f"the step engine draws over every lane each try); {choose_ms} ms one launch a sample, "
-        f"{choose_batched} ms in batches of 20, plain {choose_plain_ms} ms; bound {c_ms} ms by "
-        f"{c_by} ({choose_bytes} bytes; {INSTRUCTIONS_PER_DRAW} SASS instructions a draw); "
-        f"{c_ms / choose_batched:.1%} of bound in batches")
+    # 2. crush_choose against its plain version on each single-step case
+    # at 1M lanes, bit-exact, timed beside the bound of the draws it
+    # counted; flat_64 firstn's figures go into the kernels line
+    choose_figures = {}
+    for name, cmap, ruleno, numrep, weights in cases:
+        rule = fused_rule(cmap, ruleno, numrep)
+        if rule is None:
+            continue
+        T, rw = tables_for(cmap, dev), reweight_lanes(cmap, weights, dev)
+        choose_figures[name] = time_choose(name, T, rule, flat_x, rw, bound,
+                                           INSTRUCTIONS_PER_DRAW)
+    choose_err, choose_ms, choose_plain_ms, c_ms, c_by = choose_figures["flat_64 firstn"]
+    # two edges of the launch: 32 slots on the racks map over 65,536
+    # lanes (a tile of 4: 1024 threads' slots take 64 KB of shared memory,
+    # above the 48 KB a block gets unasked), and a take row of 12,000
+    # items, too wide to stage, over 8192 lanes (read from global memory;
+    # the draw on crush_straw2, since the plain draw over it takes minutes)
+    _name, big, big_rule, _n, big_w = cases[3]
+    wide = CrushMap.flat(12_000)
+    for name, cmap, ruleno, numrep, weights, n, route in (
+            ("racks_8x16x12 chooseleaf, 32 slots", big, big_rule, 32, big_w, 65536, "plain"),
+            ("flat_12000 firstn", wide, wide.add_simple_rule(wide.root_id(), 0), 3, None, 8192,
+             "fused")):
+        rule = fused_rule(cmap, ruleno, numrep)
+        time_choose(name, tables_for(cmap, dev), rule, flat_x[:n],
+                    reweight_lanes(cmap, weights, dev), bound, INSTRUCTIONS_PER_DRAW, route)
 
     # 3. the main path: CrushTester (crushtool --test's engine) on each
     # case; a rule that crush_choose takes launches it, the chain crush_straw2
@@ -1654,10 +1655,13 @@ def run_churn(dev, rng) -> dict:
 
     from ceph_tpu_torch.crush import mapper_torch
     from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
-    from ceph_tpu_torch.crush.mapper_torch_hier import MapTables, fused_rule, tables_for
+    from ceph_tpu_torch.crush.mapper_torch_hier import (
+        MapTables, fused_rule, reweight_lanes, tables_for)
     from ceph_tpu_torch.osd.churn import ChurnPlanner, apply_churn, synthetic_map
     from ceph_tpu_torch.osd.osdmap import OSDMap, PGid
     from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.tools.gf_matmul_sweep import (
+        INSTRUCTIONS_PER_DRAW, ISSUE_LANES_PER_CLOCK_PER_SM, pool_lanes)
 
     t0 = time.perf_counter()
     m = synthetic_map(CHURN_OSDS, CHURN_OSDS_PER_HOST, replicated=(3, CHURN_PG_NUM),
@@ -1737,6 +1741,19 @@ def run_churn(dev, rng) -> dict:
             raise AssertionError(f"pool {pool.name}: crush_choose does not take its rule")
     if launches["crush_choose"] == 0:
         raise AssertionError("crush_choose was not launched in phase 8")
+
+    # each pool's crush_choose launch alone, as map_pool makes it
+    # (65,536 lanes; the 640-item root staged), bit-exact against its
+    # plain version with the draw on crush_straw2 (phase 7 holds that
+    # against straw2_plain; the plain route's map_all below takes about
+    # 20 s) and timed beside its bound
+    bound = bound_fn(dev, ISSUE_LANES_PER_CLOCK_PER_SM)
+    for pool in m.pools.values():
+        ruleno, x, weights = pool_lanes(m, pool, dev)
+        time_choose(f"pool {pool.name} ({pool.pg_num} PGs x {pool.size})",
+                    tables_for(m.crush, dev), fused_rule(m.crush, ruleno, pool.size), x,
+                    reweight_lanes(m.crush, weights, dev), bound, INSTRUCTIONS_PER_DRAW,
+                    route="fused")
 
     # map_pool through the fused and the step routes, in turns
     for pool in m.pools.values():

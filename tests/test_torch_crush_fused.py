@@ -3,13 +3,17 @@
 ``crush_torch.div_by_recip_plain`` (the kernels' exact divide: the high
 half of ``n * recip``, one correction) against ``//``; ``MapTables``'
 reciprocals against ``recip_table``; ``fused_rule`` against the rule
-interpreter's own reading of each rule; and ``_emulate_crush_choose``,
+interpreter's own reading of each rule; ``_emulate_crush_choose_tiled``,
 which walks the packed tables lane by lane as ``csrc/crush_choose.cu``
-does (the take row staged apart, the reciprocal divide, a register
-``out``), against the reference's scalar
-``ceph_tpu.crush.mapper.crush_do_rule``.  The kernel itself runs only on
-the card (``chip_smoke.py`` phase 7).  No tolerance: equality
-everywhere.
+does with a tile of G threads a lane (the take row staged apart, the
+reciprocal divide, each row's draws split over the tile and reduced
+through the packed key q << 15 | slot, the lane's slots in one shared
+array with a vote), against the reference's scalar
+``ceph_tpu.crush.mapper.crush_do_rule`` for every G; the tile's draw on
+ties, zero weights and rows wider than the tile; and the wrapper's
+choice of G and its refusals, which run on the host.  The kernel itself
+runs only on the card (``chip_smoke.py`` phases 7 and 8).  No
+tolerance: equality everywhere.
 """
 
 import numpy as np
@@ -35,13 +39,16 @@ from ceph_tpu.crush.map import (
 )
 from ceph_tpu_torch.crush import mapper_torch, mapper_torch_hier
 from ceph_tpu_torch.crush.hashes import crush_hash32_2, crush_hash32_3
-from ceph_tpu_torch.ops import crush_torch, gf_cuda
+from ceph_tpu_torch.ops import crush_cuda, crush_torch, gf_cuda
 from tests.test_torch_crush_vec import _build_racks, _chain_rule, _weights, carry
 
 CPU = torch.device("cpu")
 U64 = (1 << 64) - 1
 M32 = 0xFFFFFFFF
 NONE, UNDEF = CRUSH_ITEM_NONE, 0x7FFFFFFE
+# the tile's key: q << SLOT_BITS | slot; a weight of 0 draws ZERO_WEIGHT_Q
+SLOT_BITS = 15
+ZERO_WEIGHT_Q = (1 << 48) + 1
 # lanes a case held against the scalar mapper
 N_X = 160
 
@@ -218,6 +225,13 @@ def test_fused_rule_reads_the_rule_as_the_interpreter_does(name):
         int(firstn), numrep, min(numrep, result_max), tries, recurse, choose.arg2, vary_r,
         stable)
     assert rule.depth == (0 if all(i >= 0 for i in cmap.buckets[take].items) else T.depth)
+    # the rows below the take bucket, by the tables' child rows
+    rows, sizes = {T.row_of[take]}, []
+    while rows:
+        row = rows.pop()
+        sizes.append(T.sizes[row])
+        rows |= {c for c in T.rows.child_row[row, :T.sizes[row]].tolist() if c >= 0}
+    assert (rule.widest, rule.row_gcd) == (max(sizes), np.gcd.reduce(sizes))
 
 
 def test_fused_rule_refuses_chains_legacy_and_wide_rules():
@@ -257,27 +271,57 @@ def _crush_ln(u, ln):
     return (iexpon << 44) + (lh >> 4)
 
 
+def _q(x, item, r, w, recip, ln):
+    """crush_draw.cuh's straw2_q: the quotient of a positive weight's
+    draw, through the reciprocal divide."""
+    u = crush_hash32_3(x, item & M32, r & M32) & 0xFFFF
+    n_ln = (1 << 48) - _crush_ln(u, ln)
+    q = (n_ln * recip) >> 64                     # __umul64hi
+    return q + 1 if n_ln - q * w >= w else q
+
+
 def _straw2_slot(items, weights, recip, n, x, r, ln):
-    """crush_draw.cuh's straw2_slot: the first smallest quotient."""
+    """crush_draw.cuh's straw2_slot: the first smallest quotient, one
+    item after the other."""
     high, high_q = 0, U64
     for i in range(n):
-        q = U64
-        if weights[i] > 0:
-            u = crush_hash32_3(x, items[i] & M32, r & M32) & 0xFFFF
-            n_ln = (1 << 48) - _crush_ln(u, ln)
-            q = (n_ln * recip[i]) >> 64            # __umul64hi
-            if n_ln - q * weights[i] >= weights[i]:
-                q += 1
+        q = _q(x, items[i], r, weights[i], recip[i], ln) if weights[i] > 0 else U64
         if q < high_q:
             high, high_q = i, q
     return high
 
 
-def _emulate_crush_choose(T, rule, xs, reweight):
+def _tile_slot(items, weights, recip, n, x, r, ln, G):
+    """``Lane::draw`` of ``csrc/crush_choose.cu`` over a tile of G
+    threads: thread t draws slots t, t + G, ... and keeps its least key
+    q << 15 | slot (its first strict minimum of q; a weight of 0 is q =
+    ZERO_WEIGHT_Q), then each round of the ``__shfl_xor_sync`` butterfly
+    takes the least of its key and its partner's.  Returns the slot that
+    every thread holds."""
+    keys = []
+    for t in range(G):
+        best = U64
+        for i in range(t, n, G):
+            q = _q(x, items[i], r, weights[i], recip[i], ln) if weights[i] > 0 else ZERO_WEIGHT_Q
+            best = min(best, q << SLOT_BITS | i)
+        keys.append(best)
+    off = G // 2
+    while off:
+        keys = [min(keys[t], keys[t ^ off]) for t in range(G)]
+        off //= 2
+    assert len(set(keys)) == 1, keys
+    return keys[0] & ((1 << SLOT_BITS) - 1)
+
+
+def _emulate_crush_choose_tiled(T, rule, xs, reweight, G):
     """``csrc/crush_choose.cu`` in Python, lane by lane, over the packed
-    tables of ``T`` (a CPU ``MapTables``): the take row staged apart,
-    the reciprocal divide, ``out``/``out2`` of CHOOSE_MAX_WIDTH slots.
-    Returns ([len(xs), width] rows, the draws made)."""
+    tables of ``T`` (a CPU ``MapTables``) as a tile of G threads walks
+    them: the take row staged apart, each row's draw split over the
+    tile (:func:`_tile_slot`), ``out``/``out2`` in one shared array of
+    the lane's width, a collision test as each thread's own slots t, t +
+    G, ... and one vote, each placed slot written once.  Returns
+    ([len(xs), width] rows, the draws made, each row's items once a
+    lane)."""
     R = T.rows
     items, weights, crow, ctype = (t.tolist() for t in (R.items, R.weights, R.child_row,
                                                         R.child_type))
@@ -285,6 +329,7 @@ def _emulate_crush_choose(T, rule, xs, reweight):
     sizes, ln, rw = T.sizes, R.ln.tolist(), list(reweight)
     tr, n_root = rule.take_row, T.sizes[rule.take_row]
     staged = tuple(t[tr][:n_root] for t in (items, weights, recip, crow, ctype))
+    width = rule.width
     draws = [0]
 
     def descend(x, row, r, want_type):
@@ -294,7 +339,7 @@ def _emulate_crush_choose(T, rule, xs, reweight):
             n = n_root if row == tr else sizes[row]
             if n == 0:
                 return "empty", 0, -1, 0
-            s = _straw2_slot(*tabs[:3], n, x, r, ln)
+            s = _tile_slot(*tabs[:3], n, x, r, ln, G)
             draws[0] += n
             item, c_row, c_type = tabs[0][s], tabs[3][s], tabs[4][s]
             if c_type == want_type:
@@ -303,6 +348,9 @@ def _emulate_crush_choose(T, rule, xs, reweight):
                 break
             row = c_row
         return "dead", 0, -1, 0
+
+    def holds(v, n, item):
+        return any([any(v[i] == item for i in range(t, n, G)) for t in range(G)])
 
     def is_out(x, item):
         if item < 0 or item >= len(rw):
@@ -320,7 +368,7 @@ def _emulate_crush_choose(T, rule, xs, reweight):
                 return None
             reject, collide = st_ == "empty", False
             if not reject:
-                collide = item in out2[:outpos]
+                collide = holds(out2, outpos, item)
                 if not collide and typ == 0:
                     reject = is_out(x, item)
             if not reject and not collide:
@@ -332,7 +380,7 @@ def _emulate_crush_choose(T, rule, xs, reweight):
     def choose_firstn(x, out, out2):
         outpos = 0
         for rep in range(rule.numrep):
-            if outpos >= rule.width:
+            if outpos >= width:
                 break
             ftotal = 0
             while True:
@@ -342,7 +390,7 @@ def _emulate_crush_choose(T, rule, xs, reweight):
                     break
                 reject, collide = st_ == "empty", False
                 if not reject:
-                    collide = item in out[:outpos]
+                    collide = holds(out, outpos, item)
                     if not collide and rule.leaf:
                         if item < 0:
                             sub_r = r >> (rule.vary_r - 1) if rule.vary_r else 0
@@ -376,8 +424,7 @@ def _emulate_crush_choose(T, rule, xs, reweight):
         return None
 
     def choose_indep(x, out, out2):
-        width = rule.width
-        out[:width] = out2[:width] = [UNDEF] * width
+        out[:] = out2[:] = [UNDEF] * width
         left, ftotal = width, 0
         while left > 0 and ftotal < rule.tries:
             for rep in range(width):
@@ -391,7 +438,7 @@ def _emulate_crush_choose(T, rule, xs, reweight):
                     out[rep] = out2[rep] = NONE
                     left -= 1
                     continue
-                if item in out[:width]:
+                if holds(out, width, item):
                     continue
                 if rule.leaf:
                     if item < 0:
@@ -407,34 +454,168 @@ def _emulate_crush_choose(T, rule, xs, reweight):
                 out[rep] = item
                 left -= 1
             ftotal += 1
-        for v in (out, out2):
-            v[:width] = [NONE if s == UNDEF else s for s in v[:width]]
 
     rows = []
     for x in xs:
-        out, out2 = [0] * gf_cuda.CHOOSE_MAX_WIDTH, [0] * gf_cuda.CHOOSE_MAX_WIDTH
+        slots = [0] * (2 * width)  # the tile's out and out2 in shared memory
+        out, out2 = slots[:width], slots[width:]
+        res = out2 if rule.leaf else out
         if rule.firstn:
             placed = choose_firstn(x, out, out2)
-            res = out2 if rule.leaf else out
-            rows.append([res[i] if i < placed else NONE for i in range(rule.width)])
+            rows.append([res[i] if i < placed else NONE for i in range(width)])
         else:
             choose_indep(x, out, out2)
-            rows.append((out2 if rule.leaf else out)[:rule.width])
+            rows.append([NONE if v == UNDEF else v for v in res])
     return np.asarray(rows, dtype=np.int64), draws[0]
+
+
+def _scalar_rows(name):
+    """The reference's scalar mapper on the case's lanes, NONE-padded to
+    the rule's width (memoised: every G of a case compares with it)."""
+    if name not in _SCALAR:
+        ref, cmap, ruleno, result_max, weights, n_x = _case(name)
+        width = mapper_torch_hier.fused_rule(cmap, ruleno, result_max).width
+        rows = []
+        for x in range(n_x):
+            scal = ref_mapper.crush_do_rule(ref, ruleno, x, result_max, weight=weights)
+            rows.append(scal + [NONE] * (width - len(scal)))
+        _SCALAR[name] = rows
+    return _SCALAR[name]
+
+
+_SCALAR: dict[str, list] = {}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_emulated_kernel_equals_the_scalar_mapper(name):
-    ref, cmap, ruleno, result_max, weights, n_x = _case(name)
+    """The walk with the tile the wrapper picks for the rule."""
+    _ref, cmap, ruleno, result_max, weights, n_x = _case(name)
     rule = mapper_torch_hier.fused_rule(cmap, ruleno, result_max)
     T = mapper_torch_hier.tables_for(cmap, CPU)
-    got, draws = _emulate_crush_choose(T, rule, range(n_x), weights)
+    got, draws = _emulate_crush_choose_tiled(T, rule, range(n_x), weights,
+                                             crush_cuda.choose_tile(T, rule))
     assert draws >= n_x
-    for x in range(n_x):
-        scal = ref_mapper.crush_do_rule(ref, ruleno, x, result_max, weight=weights)
-        want = scal + [NONE] * (rule.width - len(scal))
-        assert got[x].tolist() == want, f"x={x}: {got[x].tolist()} != scalar {scal}"
+    for x, want in enumerate(_scalar_rows(name)):
+        assert got[x].tolist() == want, f"x={x}: {got[x].tolist()} != scalar {want}"
     # and the routed CPU path (the kernel's plain version) gives the same
     vec = mapper_torch.vec_do_rule(cmap, ruleno, np.arange(n_x), result_max, weight=weights,
                                    device="cpu")
     assert np.array_equal(vec, got)
+
+
+@pytest.mark.parametrize("name,G", [(n, g) for n in sorted(CASES) for g in gf_cuda.CHOOSE_TILES])
+def test_tiled_walk_equals_the_scalar_mapper(name, G):
+    """Every tile the kernel is built for gives the scalar mapper's rows
+    and counts the same draws (each row's items once a lane)."""
+    _ref, cmap, ruleno, result_max, weights, n_x = _case(name)
+    rule = mapper_torch_hier.fused_rule(cmap, ruleno, result_max)
+    T = mapper_torch_hier.tables_for(cmap, CPU)
+    got, draws = _emulate_crush_choose_tiled(T, rule, range(n_x), weights, G)
+    for x, want in enumerate(_scalar_rows(name)):
+        assert got[x].tolist() == want, f"G={G} x={x}: {got[x].tolist()} != scalar {want}"
+    assert draws == _DRAWS.setdefault(name, draws)
+
+
+_DRAWS: dict[str, int] = {}
+
+
+# -- the tile's draw on ties, zero weights and wide rows ------------------------
+
+
+def _row(items, weights):
+    w = np.asarray(weights, dtype=np.int64)
+    return list(items), list(weights), crush_torch.recip_table(w).view(np.uint64).tolist()
+
+
+def _ranked(x, r, candidates, ln):
+    """``candidates`` sorted by their draw's q at weight 0x10000, least
+    (the winner) first."""
+    recip = U64 // 0x10000
+    return sorted(candidates, key=lambda it: _q(x, it, r, 0x10000, recip, ln))
+
+
+@pytest.mark.parametrize("G", gf_cuda.CHOOSE_TILES)
+@pytest.mark.parametrize("x,r", [(0, 0), (7, 3), (123456789, 41)])
+def test_tile_draw_ties_go_to_the_first_slot(G, x, r):
+    """The same item at two slots draws the same q: the first slot wins,
+    whether the two slots fall to two threads (the later slot on the
+    lower thread too) or to one thread (slots i and i + G)."""
+    ln = crush_torch.ln_table(CPU).tolist()
+    best, *rest = _ranked(x, r, range(100, 100 + 4 * G + 8), ln)
+    n = 4 * G + 2
+    for i, j in ((1, 2), (3, G + 1), (G - 1, 2 * G), (2, 2 + G), (0, 3 * G)):
+        if j == i or not 0 <= i < j < n:
+            continue
+        items = rest[:n]
+        items[i] = items[j] = best
+        row = _row(items, [0x10000] * n)
+        want = _straw2_slot(*row, n, x, r, ln)
+        assert want == i
+        assert _tile_slot(*row, n, x, r, ln, G) == i, (i, j)
+
+
+@pytest.mark.parametrize("G", gf_cuda.CHOOSE_TILES)
+def test_tile_draw_zero_weights_and_rows_wider_than_the_tile(G):
+    """A row of weights 0 takes slot 0, as the scalar draw does; zero
+    weights never win over a positive one; rows of 1 to 5 G + 3 items
+    give the scalar draw's slot."""
+    ln = crush_torch.ln_table(CPU).tolist()
+    rng = np.random.default_rng(G)
+    for n in (1, 2, G - 1, G, G + 1, 3 * G + 1, 5 * G + 3):
+        if n < 1:
+            continue
+        items = rng.permutation(4096)[:n].tolist()
+        zero = _row(items, [0] * n)
+        for x, r in ((0, 0), (5, 1), (99, 7)):
+            assert _tile_slot(*zero, n, x, r, ln, G) == _straw2_slot(*zero, n, x, r, ln) == 0
+        w = rng.integers(1, 1 << 20, size=n)
+        w[rng.random(n) < 0.4] = 0
+        mixed = _row(items, w.tolist())
+        for x in range(24):
+            s = _tile_slot(*mixed, n, x, x % 5, ln, G)
+            assert s == _straw2_slot(*mixed, n, x, x % 5, ln)
+            assert w[s] > 0 or not w.any()
+
+
+# -- the wrapper's tile, on the host -----------------------------------------------
+
+
+@pytest.mark.parametrize("rows,want", [
+    ([1], 4), ([3], 4), ([5], 4), ([8], 8), ([12], 4), ([16], 8), ([17], 4), ([64], 8),
+    ([640], 8), ([16] + [4] * 16, 4), ([6] + [8] * 4 + [16] * 2, 4), ([8] + [8, 16] * 4, 8)])
+def test_choose_tile_is_8_when_8_divides_every_row_else_4(rows, want):
+    """A flat map of one row, or a root over hosts of the given sizes:
+    the tile, 8 or 4, leaves no thread idle in any row's draws."""
+    if len(rows) == 1:
+        cmap = CrushMap.flat(rows[0])
+        ruleno = cmap.add_simple_rule(cmap.root_id(), 0)
+    else:
+        assert rows[0] == len(rows) - 1
+        first = np.cumsum([0] + rows[1:])
+        cmap = CrushMap.hierarchical([list(range(a, a + n)) for a, n in zip(first, rows[1:])])
+        ruleno = cmap.add_simple_rule(cmap.root_id("default"), 1)
+    cmap = carry(cmap)
+    rule = mapper_torch_hier.fused_rule(cmap, ruleno, 3)
+    assert (rule.widest, rule.row_gcd) == (max(rows), np.gcd.reduce(rows))
+    assert crush_cuda.choose_tile(mapper_torch_hier.tables_for(cmap, CPU), rule) == want
+
+
+def test_choose_tile_refuses_what_the_kernel_does_not_take():
+    """A width outside [1, 32] and a row of 2^15 items or more on the
+    rule's path raise on the host; ``fused_rule`` leaves a map with such
+    a row to the step engine, and takes one a slot narrower."""
+    flat = carry(CrushMap.flat(64))
+    ruleno = flat.add_simple_rule(flat.root_id(), 0)
+    T, rule = mapper_torch_hier.tables_for(flat, CPU), mapper_torch_hier.fused_rule(flat, ruleno, 3)
+    for bad in (rule._replace(width=gf_cuda.CHOOSE_MAX_WIDTH + 1), rule._replace(width=0)):
+        with pytest.raises(ValueError, match="slots"):
+            crush_cuda.choose_tile(T, bad)
+    with pytest.raises(ValueError, match="rows of fewer than"):
+        crush_cuda.choose_tile(T, rule._replace(widest=gf_cuda.CHOOSE_MAX_SLOTS))
+    assert crush_cuda.choose_tile(T, rule._replace(widest=gf_cuda.CHOOSE_MAX_SLOTS - 1)) == 8
+    wide = CrushMap.flat(gf_cuda.CHOOSE_MAX_SLOTS)
+    assert mapper_torch_hier.fused_rule(wide, wide.add_simple_rule(wide.root_id(), 0), 3) is None
+    under = CrushMap.flat(gf_cuda.CHOOSE_MAX_SLOTS - 1)
+    rule = mapper_torch_hier.fused_rule(under, under.add_simple_rule(under.root_id(), 0), 3)
+    assert (rule.widest, rule.row_gcd) == (gf_cuda.CHOOSE_MAX_SLOTS - 1,) * 2
+    assert crush_cuda.choose_tile(mapper_torch_hier.MapTables(under, CPU), rule) == 4

@@ -38,6 +38,7 @@ Every scenario runs under ``asyncio.wait_for`` (``LIMIT_S``).
 import asyncio
 import contextlib
 import hashlib
+import itertools
 import json
 import random
 import sys
@@ -48,10 +49,12 @@ import pytest
 from hypothesis import given, settings, strategies as st
 
 import ceph_tpu.rados as ref_rados
+import ceph_tpu.rados.client as ref_client
 import ceph_tpu.rgw as ref_rgw
 import ceph_tpu.rgw.http as ref_http
 import ceph_tpu.rgw.store as ref_store
 import ceph_tpu_torch.rados as port_rados
+import ceph_tpu_torch.rados.client as port_client
 import ceph_tpu_torch.rgw as port_rgw
 import ceph_tpu_torch.rgw.http as port_http
 import ceph_tpu_torch.rgw.store as port_store
@@ -108,7 +111,8 @@ def deterministic(seed: int = SEED, callers=GATEWAY_MODULES, secret_modules=None
     gateway's modules (or in the modules named by the prefixes
     ``callers``; the reference's function-local ``import time``
     included) and the real clock to everyone else (the OSDs, the mon,
-    the messenger)."""
+    the messenger).  Both packages' clients are numbered afresh from
+    ``client.1``, whatever the process ran before."""
     clock, secrets = _Clock(), _Secrets(seed)
     real_time, real_time_ns = time.time, time.time_ns
 
@@ -126,6 +130,8 @@ def deterministic(seed: int = SEED, callers=GATEWAY_MODULES, secret_modules=None
             mp.setattr(mod, "secrets", secrets)
         mp.setattr(time, "time", fake_time)
         mp.setattr(time, "time_ns", fake_time_ns)
+        for mod in (ref_client, port_client):
+            mp.setattr(mod, "_client_counter", itertools.count(1))
         yield
 
 
