@@ -8,13 +8,17 @@ values is one set of [X] lanes on the device.
 
 On the card, a single-step rule (TAKE -> one CHOOSE[LEAF] -> EMIT, which
 ``mapper_torch_hier.fused_rule`` describes) is one launch of the
-``crush_choose`` kernel: one thread a lane runs the scalar mapper's
-whole choose step (reps, tries, descent, collisions, ``is_out``,
-chooseleaf's leaf step).  CPU lanes of such a rule take its plain
-version, :func:`crush_choose_plain`: the step engine's loops.
+``crush_choose`` kernel: a tile of threads a lane runs the scalar
+mapper's whole choose step (reps, tries, descent, collisions,
+``is_out``, chooseleaf's leaf step).  A chained rule (the LRC rules,
+``mapper_torch_hier.chain_rules``) is one launch a step, each later
+step's lanes rooted at the previous step's buckets, with the regions
+compacted between launches by torch programs.  CPU lanes of such rules
+take the kernel's plain version, :func:`crush_choose_plain`: the step
+engine's loops.
 
-The step engine (:func:`_step_engine`; chained LRC rules and rules of
-more than 32 slots take it on the card too): the rjenkins hashes, the
+The step engine (:func:`_step_engine`; rules of more than 32 slots take
+it on the card too): the rjenkins hashes, the
 exact straw2 draw (on the card the ``crush_straw2`` kernel, routed by
 ``ops/crush_torch.py``), weight rejection (reference:mapper.c:385), and
 the firstn/indep retry loops (reference:mapper.c:421, :612) as masked
@@ -78,9 +82,11 @@ from .map import (
 )
 from .mapper_torch_hier import (
     FusedRule,
+    _chain_engine,
     _hier_engine,
+    chain_rules,
     choose_firstn_hier,
-    choose_indep_hier,
+    choose_indep_plain,
     fused_rule,
     int32_weights,
     lanes_of,
@@ -237,54 +243,61 @@ def _flat_engine(cmap, ruleno, x, result_max, weight):
               numrep, min(numrep, result_max), tries)
 
 
-def crush_choose_plain(T, rule: FusedRule, x, reweight):
+def crush_choose_plain(T, rule: FusedRule, x, reweight, roots=None):
     """Plain version of the ``crush_choose`` kernel: the step engine's
     loops for ``rule`` (the flat loops for a TAKE of devices choosing
     devices, the hierarchical ones otherwise) with the routed draw.
-    Returns [X, rule.width] int32 with CRUSH_ITEM_NONE holes."""
-    if rule.depth == 0 and rule.want_type == 0 and not rule.leaf:
+    ``roots`` (int32 [X] table rows, -1 for none), for a chain's later
+    step (``rule.take_row`` -1, indep), starts each lane from its own
+    root.  Returns [X, rule.width] int32 with CRUSH_ITEM_NONE holes."""
+    if (roots is not None) != (rule.take_row < 0) or (roots is not None and rule.firstn):
+        raise ValueError("per-lane roots go with an indep rule of take_row -1, and only there")
+    if roots is None and rule.depth == 0 and rule.want_type == 0 and not rule.leaf:
         fn = choose_firstn if rule.firstn else choose_indep
         return fn(T, x, torch.full_like(x, rule.take_row), reweight, rule.numrep,
                   rule.width, rule.tries)
-    if rule.firstn:
-        out, out2, _outpos = choose_firstn_hier(
-            T, x, rule.take_row, reweight, numrep=rule.numrep, width=rule.width,
-            tries=rule.tries, recurse_tries=rule.recurse_tries, want_type=rule.want_type,
-            leaf=bool(rule.leaf), vary_r=rule.vary_r, stable=rule.stable)
-    else:
-        out, out2 = choose_indep_hier(
-            T, x, rule.take_row, reweight, numrep=rule.numrep, out_size=rule.width,
-            tries=rule.tries, recurse_tries=rule.recurse_tries, want_type=rule.want_type,
-            leaf=bool(rule.leaf))
+    if not rule.firstn:
+        return choose_indep_plain(T, rule, x, reweight, roots)
+    out, out2, _outpos = choose_firstn_hier(
+        T, x, rule.take_row, reweight, numrep=rule.numrep, width=rule.width,
+        tries=rule.tries, recurse_tries=rule.recurse_tries, want_type=rule.want_type,
+        leaf=bool(rule.leaf), vary_r=rule.vary_r, stable=rule.stable)
     return out2 if rule.leaf else out
 
 
-def choose(T, rule: FusedRule, x, reweight):
+def choose(T, rule: FusedRule, x, reweight, roots=None):
     """The routed choose step: CPU lanes take :func:`crush_choose_plain`,
     CUDA lanes the ``crush_choose`` kernel (which raises on what it
     cannot run)."""
     if x.device.type == "cpu":
-        return crush_choose_plain(T, rule, x, reweight)
-    return crush_cuda.crush_choose(T, rule, x, reweight)
+        return crush_choose_plain(T, rule, x, reweight, roots)
+    return crush_cuda.crush_choose(T, rule, x, reweight, roots=roots)
 
 
 def _engine(cmap, ruleno, x, result_max, weight):
     """A rule that :func:`fused_rule` takes runs as one routed choose
-    step (on the card, one ``crush_choose`` launch); any other rule the
-    batched path supports takes :func:`_step_engine`.  Decided from the
-    map and rule before any launch."""
+    step (on the card, one ``crush_choose`` launch), a chain that
+    :func:`chain_rules` takes as one routed choose a step (and one more
+    a region ``result_max`` cuts short); any other rule the batched
+    path supports takes :func:`_step_engine`.  Decided from the map and
+    rule before any launch."""
     rule = fused_rule(cmap, ruleno, result_max)
-    if rule is None:
-        return _step_engine(cmap, ruleno, x, result_max, weight)
-    return choose(tables_for(cmap, x.device), rule, x,
-                  reweight_lanes(cmap, weight, x.device))
+    if rule is not None:
+        return choose(tables_for(cmap, x.device), rule, x,
+                      reweight_lanes(cmap, weight, x.device))
+    steps = chain_rules(cmap, ruleno, result_max)
+    if steps is not None:
+        return _chain_engine(tables_for(cmap, x.device), x,
+                             reweight_lanes(cmap, weight, x.device), steps, result_max, choose)
+    return _step_engine(cmap, ruleno, x, result_max, weight)
 
 
 def _step_engine(cmap, ruleno, x, result_max, weight):
     """The step engine: the choose loops one try (and level) a step,
     each draw through ``crush_torch.straw2`` (on the card the
-    ``crush_straw2`` kernel).  Chained rules and rules of more than
-    ``gf_cuda.CHOOSE_MAX_WIDTH`` slots take it; the comparisons on the
+    ``crush_straw2`` kernel).  Rules of more than
+    ``gf_cuda.CHOOSE_MAX_WIDTH`` slots (or with a row of
+    ``gf_cuda.CHOOSE_MAX_SLOTS`` items) take it; the comparisons on the
     card call it directly for any rule."""
     if _supports_flat(cmap, ruleno):
         return _flat_engine(cmap, ruleno, x, result_max, weight)

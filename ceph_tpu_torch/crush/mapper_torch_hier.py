@@ -23,8 +23,9 @@ loops over [X] lanes that stay on the device — the exact control flow
 of the scalar mapper, one mask per branch.  Each loop reads one flag
 back to the host per level or round, to stop when no lane is left.
 These loops are the step engine: on the card, a single-step rule
-(:func:`fused_rule`) runs instead as one ``crush_choose`` launch, and
-they remain its plain version and the chained rules' engine.
+(:func:`fused_rule`) runs instead as one ``crush_choose`` launch, and a
+chained rule (:func:`chain_rules`) as one launch a step, and they
+remain the kernel's plain version.
 
 The draw is exact, so every lane is bit-identical to ``crush_do_rule``.
 What the reference needs only because its TPU draw is an f32
@@ -41,11 +42,11 @@ Supported shape (``supports_hier``), as the reference's:
 - CHAINED rules — TAKE -> CHOOSE_INDEP -> ... -> CHOOSE[LEAF]_INDEP ->
   EMIT, the LRC per-layer shape
   (reference:src/erasure-code/lrc/ErasureCodeLrc.cc:44) — each later
-  step one flattened [X*width] run rooted at the previous step's
-  buckets.  The scalar interpreter skips a previous slot that holds no
-  bucket and clamps the last region at ``result_max``; the chain engine
-  does both on the device (the reference re-runs such lanes on the
-  host).
+  step one flattened [X*width] run, each lane rooted at its own bucket
+  of the previous step.  The scalar interpreter skips a previous slot
+  that holds no bucket and clamps the last region at ``result_max``;
+  the chain engine does both on the device (the reference re-runs such
+  lanes on the host).
 """
 
 from __future__ import annotations
@@ -517,14 +518,16 @@ def reweight_lanes(cmap: CrushMap, weight, device) -> torch.Tensor:
 def _hier_engine(cmap, ruleno, x, result_max, weight):
     """Run the hierarchical engine on lanes ``x``: out [X, W] on their
     device, or None (degenerate numrep)."""
-    take, chooses, tries, leaf_tries, vary_r, stable = _rule_shape(cmap, ruleno)
+    shape = _rule_shape(cmap, ruleno)
+    take, chooses, tries, leaf_tries, vary_r, stable = shape
     t = cmap.tunables
     T = tables_for(cmap, x.device)
     rw = reweight_lanes(cmap, weight, x.device)
     root_row = T.row_of[take]
 
     if len(chooses) > 1:
-        return _chain_engine(T, x, rw, root_row, chooses, tries, leaf_tries, result_max)
+        return _chain_engine(T, x, rw, _chain_steps(cmap, shape, result_max), result_max,
+                             choose_indep_plain)
 
     choose = chooses[0]
     firstn = choose.op in (CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSELEAF_FIRSTN)
@@ -560,16 +563,18 @@ def _recurse_tries(t, firstn: bool, tries: int, leaf_tries: int) -> int:
 
 
 class FusedRule(NamedTuple):
-    """A single-step rule as the ``crush_choose`` kernel takes it: its
-    first ``gf_cuda.CHOOSE_RULE_INTS`` ints, in this order, are the
-    kernel's ``Rule`` (``csrc/crush_choose.cu``).  ``take_row`` is the
-    TAKE bucket's table row, ``width`` the output's slots
+    """A single-step rule, or one step of a chained rule, as the
+    ``crush_choose`` kernel takes it: its first
+    ``gf_cuda.CHOOSE_RULE_INTS`` ints, in this order, are the kernel's
+    ``Rule`` (``csrc/crush_choose.cu``).  ``take_row`` is the TAKE
+    bucket's table row, or -1 for a chain's later step, whose lanes each
+    start from a root row of their own; ``width`` the output's slots
     (``min(numrep, result_max)``), ``depth`` the levels of buckets below
     the TAKE bucket, which bounds a descent; ``widest`` and ``row_gcd``
-    are the most items of a row the rule may draw over (the TAKE
-    bucket's or a bucket's below it) and the greatest common divisor of
-    those rows' sizes, which the wrapper reads to pick the kernel's
-    tile."""
+    are the most items of a row the step may draw over (the TAKE
+    bucket's or a bucket's below it; for a later step of a chain only
+    the buckets below it) and the greatest common divisor of those
+    rows' sizes, which the wrapper reads to pick the kernel's tile."""
 
     take_row: int
     firstn: int
@@ -586,32 +591,35 @@ class FusedRule(NamedTuple):
     row_gcd: int
 
 
-def _path_sizes(cmap: CrushMap, take: int) -> list[int]:
-    """The sizes of bucket ``take`` and of every bucket below it."""
-    seen, todo = {take}, [take]
+def _below(cmap: CrushMap, take: int) -> set[int]:
+    """The buckets below bucket ``take``."""
+    seen, todo = set(), [take]
     while todo:
         for it in cmap.buckets[todo.pop()].items:
             if it < 0 and it in cmap.buckets and it not in seen:
                 seen.add(it)
                 todo.append(it)
-    return [len(cmap.buckets[b].items) for b in seen]
+    return seen
+
+
+def _path_sizes(cmap: CrushMap, take: int) -> list[int]:
+    """The sizes of bucket ``take`` and of every bucket below it."""
+    return [len(cmap.buckets[b].items) for b in _below(cmap, take) | {take}]
 
 
 def fused_rule(cmap: CrushMap, ruleno: int, result_max: int) -> FusedRule | None:
     """The rule as the ``crush_choose`` kernel takes it, or None when the
     kernel does not take it: a rule :func:`supports_hier` refuses
     (legacy local tries included), a chain of more than one choose step
-    (the LRC rules, left to the step engine), a degenerate numrep, more
-    than ``gf_cuda.CHOOSE_MAX_WIDTH`` slots, or a row of
+    (the LRC rules, which :func:`chain_rules` reads), a degenerate
+    numrep, more than ``gf_cuda.CHOOSE_MAX_WIDTH`` slots, or a row of
     ``gf_cuda.CHOOSE_MAX_SLOTS`` items or more on its path.  Read from
     the same :func:`_rule_shape` and leaf tries as :func:`_hier_engine`,
     so the kernel and the step engine run one rule."""
-    if not supports_hier(cmap, ruleno):
+    shape = _rule_shape(cmap, ruleno)
+    if shape is None or len(shape[1]) != 1 or not supports_hier(cmap, ruleno):
         return None
-    take, chooses, tries, leaf_tries, vary_r, stable = _rule_shape(cmap, ruleno)
-    if len(chooses) != 1:
-        return None
-    choose = chooses[0]
+    take, (choose,), tries, leaf_tries, vary_r, stable = shape
     firstn = choose.op in (CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSELEAF_FIRSTN)
     leaf = choose.op in (CRUSH_RULE_CHOOSELEAF_FIRSTN, CRUSH_RULE_CHOOSELEAF_INDEP)
     numrep = choose.arg1 if choose.arg1 > 0 else choose.arg1 + result_max
@@ -627,8 +635,76 @@ def fused_rule(cmap: CrushMap, ruleno: int, result_max: int) -> FusedRule | None
         stable, _bucket_depth(cmap, take, {}), max(sizes), math.gcd(*sizes))
 
 
-def _chain_engine(T, x, rw, root_row, chooses, tries, leaf_tries, result_max):
-    """Chained INDEP steps on the device (the LRC per-layer rules).
+def _chain_steps(cmap: CrushMap, shape: tuple, result_max: int) -> list[FusedRule]:
+    """A chained rule's steps (:func:`_rule_shape`'s ``shape`` of a rule
+    :func:`supports_hier` took), each as a :class:`FusedRule`, read as
+    ``crush_do_rule`` runs them: the first
+    from the TAKE bucket, ``min(numrep, result_max)`` slots, leaf tries
+    1; each later one from a root per lane (``take_row`` -1), its own
+    numrep as its width, its leaf tries ``leaf_tries or 1`` (indep's,
+    ``crush/mapper.py:610``).  ``depth`` is the TAKE bucket's, which
+    bounds every descent below it; a later step's ``widest`` and
+    ``row_gcd`` cover the buckets below the TAKE bucket, where its roots
+    lie."""
+    take, chooses, tries, leaf_tries, vary_r, stable = shape
+    first, *later = chooses
+    depth = _bucket_depth(cmap, take, {})
+    sizes = _path_sizes(cmap, take)
+    below = [len(cmap.buckets[b].items) for b in _below(cmap, take)]
+    steps = [FusedRule(sorted(cmap.buckets).index(take), 0, 0, first.arg1,
+                       min(first.arg1, result_max), tries, 1, first.arg2, vary_r, stable, depth,
+                       max(sizes), math.gcd(*sizes))]
+    for step in later:
+        steps.append(FusedRule(
+            -1, 0, int(step.op == CRUSH_RULE_CHOOSELEAF_INDEP), step.arg1, step.arg1, tries,
+            leaf_tries or 1, step.arg2, vary_r, stable, depth, max(below, default=0),
+            math.gcd(*below)))
+    return steps
+
+
+def chain_rules(cmap: CrushMap, ruleno: int, result_max: int) -> list[FusedRule] | None:
+    """A chained rule (more than one choose step: the LRC rules) as the
+    ``crush_choose`` kernel takes it, one :class:`FusedRule` a step
+    (:func:`_chain_steps`), or None when the kernel does not take it: a
+    rule :func:`supports_hier` refuses, a single-step rule (which
+    :func:`fused_rule` reads), a step of no slot or of more than
+    ``gf_cuda.CHOOSE_MAX_WIDTH``, or a row of
+    ``gf_cuda.CHOOSE_MAX_SLOTS`` items or more below the TAKE bucket.
+    Decided from the map before any launch."""
+    shape = _rule_shape(cmap, ruleno)
+    if shape is None or len(shape[1]) < 2 or not supports_hier(cmap, ruleno):
+        return None
+    steps = _chain_steps(cmap, shape, result_max)
+    if any(not 1 <= s.width <= gf_cuda.CHOOSE_MAX_WIDTH
+           or s.widest >= gf_cuda.CHOOSE_MAX_SLOTS for s in steps):
+        return None
+    return steps
+
+
+def choose_indep_plain(T: MapTables, rule: FusedRule, x, reweight, roots=None):
+    """:func:`choose_indep_hier` for an indep ``rule``: every lane from
+    the take row, or with ``roots`` (int32 [X] table rows) each lane
+    from its own root, where a root of -1 (no bucket) gives a row of
+    NONE and draws nothing.  Returns [X, rule.width] int32: out2 for
+    chooseleaf, otherwise out."""
+    kw = dict(numrep=rule.numrep, out_size=rule.width, tries=rule.tries,
+              recurse_tries=rule.recurse_tries, want_type=rule.want_type, leaf=bool(rule.leaf))
+    if roots is None:
+        out, out2 = choose_indep_hier(T, x, rule.take_row, reweight, **kw)
+        return out2 if rule.leaf else out
+    live = roots >= 0
+    res = torch.full((x.shape[0], rule.width), _NONE, dtype=_LANE, device=x.device)
+    out, out2 = choose_indep_hier(T, x[live], roots[live], reweight, **kw)
+    res[live] = out2 if rule.leaf else out
+    return res
+
+
+def _chain_engine(T, x, rw, steps, result_max, choose_step):
+    """Chained INDEP steps on the device (the LRC per-layer rules), each
+    step ``choose_step(T, rule, lanes, rw[, roots])``: the routed
+    ``crush_choose`` (on the card one launch a step, and one more a
+    region that ``result_max`` cuts short) or the step engine's
+    :func:`choose_indep_plain`.  ``steps`` is :func:`_chain_steps`'s.
 
     Scalar semantics (mapper.c do_rule CHOOSE loop + the pinned
     crush/mapper.py): each later step runs crush_choose_indep once PER
@@ -637,41 +713,34 @@ def _chain_engine(T, x, rw, root_row, chooses, tries, leaf_tries, result_max):
     regions concatenate.  The k-th bucket's region starts at
     ``min(k*n, result_max)`` and holds ``min(n, result_max - start)``
     slots; a previous slot that is NONE or a device is skipped.  So each
-    step is one flattened [X*width] run (and, where ``result_max`` cuts
-    a region short, one more run with the shorter region), whose regions
-    are scattered to their compacted places; what the scalar would not
-    write stays NONE."""
+    step is one flattened [X*width] run over the lanes whose region is
+    whole (each rooted at its bucket, the others at -1), and, where
+    ``result_max`` cuts a region short, one more run of the shorter
+    width over the lanes of that region; the regions are scattered to
+    their compacted places, and what the scalar would not write stays
+    NONE."""
     X = x.shape[0]
     dev = x.device
-    first = chooses[0]
-    width = min(first.arg1, result_max)
-    cur, _o2 = choose_indep_hier(
-        T, x, root_row, rw, numrep=first.arg1, out_size=width, tries=tries,
-        recurse_tries=1, want_type=first.arg2, leaf=False)
+    first, *later = steps
+    cur = choose_step(T, first, x, rw)
+    width = first.width
     nrow = T.id2row.shape[0]
-    for step in chooses[1:]:
-        leaf_s = step.op == CRUSH_RULE_CHOOSELEAF_INDEP
-        n_s = step.arg1
+    for rule in later:
+        n_s = rule.numrep
         is_bucket = cur < 0  # NONE is positive, devices are >= 0
         rows = torch.where(is_bucket, torch.take(T.id2row, (-1 - cur).clamp(0, nrow - 1).long()), -1)
         valid = rows >= 0                                       # [X, width]
         rank = torch.cumsum(valid, dim=1, dtype=_LANE) - valid.to(_LANE)
         region = (result_max - rank * n_s).clamp(0, n_s)        # slots this bucket fills
         x_flat = x.repeat_interleave(width)
-        rows_flat = torch.where(valid, rows, 0).reshape(-1)
-
-        def run(out_size):
-            o, o2 = choose_indep_hier(
-                T, x_flat, rows_flat, rw, numrep=n_s, out_size=out_size, tries=tries,
-                recurse_tries=leaf_tries or 1, want_type=step.arg2, leaf=leaf_s)
-            return (o2 if leaf_s else o).reshape(X, width, out_size)
-
-        use = run(n_s)
+        whole = torch.where(region == n_s, rows, -1).reshape(-1)
+        use = choose_step(T, rule, x_flat, rw, whole).reshape(X, width, n_s)
         short = result_max % n_s
         if width * n_s > result_max and short:
-            cut = torch.full_like(use, _NONE)
-            cut[:, :, :short] = run(short)
-            use = torch.where((region < n_s)[:, :, None], cut, use)
+            cut = torch.where((region > 0) & (region < n_s), rows, -1).reshape(-1)
+            part = choose_step(T, rule._replace(width=short), x_flat, rw, cut)
+            use[:, :, :short] = torch.where((region < n_s)[:, :, None],
+                                            part.reshape(X, width, short), use[:, :, :short])
         new_width = min(width * n_s, result_max)
         t = torch.arange(n_s, device=dev)
         dest = torch.where(valid[:, :, None] & (t < region[:, :, None]),

@@ -18,7 +18,11 @@
 // crush_choose_indep :358 with its UNDEF/NONE slots and r = rep +
 // numrep * ftotal; bucket_straw2_choose :176), with modern tunables (no
 // local retries) over straw2 buckets, as mapper_torch_hier.fused_rule
-// admits them.  All G threads take the lane's control flow together
+// admits them.  A chained rule (the LRC rules: CHOOSE_INDEP over racks,
+// then CHOOSELEAF_INDEP below each, as mapper_torch_hier.chain_rules
+// reads them) is one launch a step: its first step from the take row,
+// each later one from a root row per lane (crush_choose_roots_kernel,
+// below).  All G threads take the lane's control flow together
 // (reps, tries, descent, collision, is_out); only a row's draws are
 // split among them.  A lane draws only what its own placement needs.
 //
@@ -58,6 +62,13 @@
 //    copy was not built, since a block stages once a launch.  Dynamic
 //    shared memory (above 48 KB after cudaFuncSetAttribute) stages a take
 //    row as wide as the device's opt-in limit allows, about 9,000 items.
+//
+// 7. A chain's later step runs crush_choose_indep once a bucket of the
+//    previous step's output, so each lane has its own root: that kernel
+//    reads the lane's root row from global memory like a deeper row and
+//    stages nothing but the ln tables; a lane with no bucket (root -1:
+//    the previous slot held NONE or a device) writes NONE and draws
+//    nothing.
 //
 // Output: [lanes, width] int32 with CRUSH_ITEM_NONE holes: out2 for
 // chooseleaf, otherwise out, as the step engine returns it.  The kernel
@@ -418,8 +429,61 @@ crush_choose_kernel(const int32_t* __restrict__ x, Tables tab, const int64_t* __
   if (threadIdx.x == 0 && *s_draws) atomicAdd(draws, *s_draws);
 }
 
+// A chain's later step: lane j runs crush_choose_indep from its own root
+// row roots[j], outpos 0, parent_r 0, exactly as crush_choose_kernel runs
+// it from the take row; a root of -1 writes NONE and draws nothing.
+// Roots differ from lane to lane, so none is staged: a root row is read
+// through __ldg like a deeper row.
+template <int G>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+crush_choose_roots_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ roots,
+                          Tables tab, const int64_t* __restrict__ ln,
+                          const int32_t* __restrict__ reweight, int n_reweight, Rule R,
+                          long long lanes, int32_t* __restrict__ out,
+                          unsigned long long* __restrict__ draws) {
+  constexpr int kTiles = kThreads / G;
+  extern __shared__ int64_t smem[];
+  unsigned long long* s_draws = reinterpret_cast<unsigned long long*>(smem);
+  int64_t* s_ln = smem + 1;
+  for (int i = threadIdx.x; i < crush::kLnEntries; i += kThreads) s_ln[i] = ln[i];
+  int32_t* s_slots = reinterpret_cast<int32_t*>(s_ln + crush::kLnEntries);
+  if (threadIdx.x == 0) *s_draws = 0;
+  __syncthreads();
+
+  const int tile = threadIdx.x / G;
+  const int t = threadIdx.x % G;
+  constexpr unsigned kTileMask = G == 32 ? 0xFFFFFFFFu : (1u << (G % 32)) - 1u;
+  const unsigned mask = kTileMask << ((threadIdx.x & 31) & ~(G - 1));
+  int32_t* o = s_slots + tile * 2 * R.width;
+  int32_t* o2 = o + R.width;
+  const int32_t* res = R.leaf ? o2 : o;
+  unsigned long long made = 0;
+  for (long long lane = static_cast<long long>(blockIdx.x) * kTiles + tile; lane < lanes;
+       lane += static_cast<long long>(gridDim.x) * kTiles) {
+    int32_t* dst = out + lane * R.width;
+    const int row = __ldg(roots + lane);
+    if (row < 0) {  // the tile's slots are untouched: no __syncwarp owed
+      for (int i = t; i < R.width; i += G) dst[i] = kNone;
+      continue;
+    }
+    const long long base = static_cast<long long>(row) * tab.I;
+    Row<false> root{tab.items + base, tab.weights + base, tab.recip + base,
+                    tab.child_row + base, tab.child_type + base};
+    Lane<G, false> L{tab, root, __ldg(tab.size + row), row, s_ln, reweight, n_reweight,
+                     static_cast<uint32_t>(__ldg(x + lane)), R.depth, t, mask, 0};
+    choose_indep(L, R, o, o2);
+    for (int i = t; i < R.width; i += G) dst[i] = res[i] == kUndef ? kNone : res[i];
+    made += L.draws;
+    __syncwarp(mask);  // the slots' last reads before the next lane's writes
+  }
+  if (t == 0 && made) atomicAdd(s_draws, made);
+  __syncthreads();
+  if (threadIdx.x == 0 && *s_draws) atomicAdd(draws, *s_draws);
+}
+
 struct Args {
   const int32_t* x;
+  const int32_t* roots;  // null: every lane from the take row
   Tables tab;
   const int64_t* ln;
   const int32_t* reweight;
@@ -433,10 +497,9 @@ struct Args {
 
 // Persistent blocks: as many as fit resident on the device, no more
 // than the lanes need.
-template <int G, bool kStaged>
-cudaError_t launch(const Args& a, size_t smem, cudaStream_t stream) {
+template <int G, typename Kernel>
+cudaError_t persistent_blocks(Kernel kernel, size_t smem, long long lanes, unsigned* blocks) {
   constexpr int kTiles = kThreads / G;
-  auto kernel = crush_choose_kernel<G, kStaged>;
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -449,16 +512,38 @@ cudaError_t launch(const Args& a, size_t smem, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
-  long long blocks = (a.lanes + kTiles - 1) / kTiles;
-  if (blocks > static_cast<long long>(per_sm) * sms) blocks = static_cast<long long>(per_sm) * sms;
-  if (blocks < 1) blocks = 1;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  long long n = (lanes + kTiles - 1) / kTiles;
+  if (n > static_cast<long long>(per_sm) * sms) n = static_cast<long long>(per_sm) * sms;
+  *blocks = static_cast<unsigned>(n < 1 ? 1 : n);
+  return cudaSuccess;
+}
+
+template <int G, bool kStaged>
+cudaError_t launch(const Args& a, size_t smem, cudaStream_t stream) {
+  auto kernel = crush_choose_kernel<G, kStaged>;
+  unsigned blocks;
+  cudaError_t err = persistent_blocks<G>(kernel, smem, a.lanes, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, smem, stream>>>(
       a.x, a.tab, a.ln, a.reweight, a.n_reweight, a.R, a.n_root, a.lanes, a.out, a.draws);
   return cudaGetLastError();
 }
 
 template <int G>
+cudaError_t launch_roots(const Args& a, cudaStream_t stream) {
+  auto kernel = crush_choose_roots_kernel<G>;
+  size_t smem = smem_bytes(false, 0, kThreads / G, a.R.width);
+  unsigned blocks;
+  cudaError_t err = persistent_blocks<G>(kernel, smem, a.lanes, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, smem, stream>>>(a.x, a.roots, a.tab, a.ln, a.reweight,
+                                             a.n_reweight, a.R, a.lanes, a.out, a.draws);
+  return cudaGetLastError();
+}
+
+template <int G>
 cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
+  if (a.roots) return launch_roots<G>(a, stream);
   int device, optin;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -479,23 +564,28 @@ extern "C" int crush_choose_max_slots() { return kMaxSlots; }
 extern "C" int crush_choose_rule_ints() { return kRuleInts; }
 
 // `rule` is kRuleInts host ints in Rule's order, `root_size` the take
-// row's size (size[take_row]), `tile` the threads a lane (4, 8, 16 or
-// 32).  Adds the draws made to *draws.  Launches on `stream`; returns the
-// launch's cudaError_t (0 on success; cudaErrorInvalidValue for a width
-// above kMaxWidth, a take row of kMaxSlots items or more, or another
-// tile).
-extern "C" int crush_choose_launch(const void* x, const void* items, const void* weights,
-                                   const void* recip, const void* child_row,
-                                   const void* child_type, const void* size, int root_size,
-                                   const void* ln, const void* reweight, int n_reweight,
-                                   int I, long long lanes, const int* rule, void* out,
-                                   void* draws, int tile, void* stream) {
+// row's size (size[take_row]), or with `roots` the most items of a row
+// below them, `tile` the threads a lane (4, 8, 16 or 32).  `roots` is
+// null, or int32 [lanes] rows that each lane's indep choose starts from
+// (-1: none; the rule's take_row is then not read).  Adds the draws made
+// to *draws.  Launches on `stream`; returns the launch's cudaError_t (0
+// on success; cudaErrorInvalidValue for a width above kMaxWidth, a row
+// of kMaxSlots items or more, firstn with roots, or another tile).
+extern "C" int crush_choose_launch(const void* x, const void* roots, const void* items,
+                                   const void* weights, const void* recip,
+                                   const void* child_row, const void* child_type,
+                                   const void* size, int root_size, const void* ln,
+                                   const void* reweight, int n_reweight, int I,
+                                   long long lanes, const int* rule, void* out, void* draws,
+                                   int tile, void* stream) {
   Rule R{rule[0], rule[1], rule[2], rule[3], rule[4], rule[5],
          rule[6], rule[7], rule[8], rule[9], rule[10]};
-  if (R.width < 1 || R.width > kMaxWidth || root_size < 0 || root_size >= kMaxSlots)
+  if (R.width < 1 || R.width > kMaxWidth || root_size < 0 || root_size >= kMaxSlots ||
+      (roots && R.firstn))
     return static_cast<int>(cudaErrorInvalidValue);
   if (lanes <= 0) return 0;
   Args a{static_cast<const int32_t*>(x),
+         static_cast<const int32_t*>(roots),
          Tables{static_cast<const int32_t*>(items), static_cast<const int32_t*>(weights),
                 static_cast<const unsigned long long*>(recip),
                 static_cast<const int32_t*>(child_row),

@@ -7,9 +7,10 @@ reference's CRUSH XLA programs (``straw2_choose_approx``,
 ``ceph_tpu/crush/mapper_jax_hier.py:189``).  ``csrc/crush_choose.cu``
 runs a single-step rule's whole choose step per lane (firstn or indep,
 chooseleaf included), as the scalar mapper does, a tile of
-:func:`choose_tile` threads a lane; it replaces the
-reference's ``choose_firstn``/``choose_indep`` programs and their
-hierarchical twins.  Both are built and loaded by ``gf_cuda``'s machinery
+:func:`choose_tile` threads a lane, and one step of a chained rule with
+each lane rooted at a bucket of its own; it replaces the reference's
+``choose_firstn``/``choose_indep`` programs and their hierarchical
+twins.  Both are built and loaded by ``gf_cuda``'s machinery
 (``nvcc`` into ``ceph_tpu_torch/build/`` at first use, bound with
 ``ctypes``) and count their launches in ``gf_cuda.launches``.  The
 routing (CPU lanes -> the plain versions) lives in ``crush_torch``
@@ -85,12 +86,13 @@ def choose_tile(T, rule) -> int:
     slower (PERF.md).  Raises on a rule the kernel does not take: a
     width outside [1, ``gf_cuda.CHOOSE_MAX_WIDTH``], or a row of
     ``gf_cuda.CHOOSE_MAX_SLOTS`` items or more on its path (the tile's
-    key keeps a slot in 15 bits).  Host-side: ``T`` is a
+    key keeps a slot in 15 bits).  A take row of -1 is a chain's later
+    step (roots per lane).  Host-side: ``T`` is a
     ``mapper_torch_hier.MapTables`` on any device."""
     if not 1 <= rule.width <= gf_cuda.CHOOSE_MAX_WIDTH:
         raise ValueError(f"crush_choose takes 1 to {gf_cuda.CHOOSE_MAX_WIDTH} slots, "
                          f"not {rule.width}")
-    if not 0 <= rule.take_row < T.B:
+    if not -1 <= rule.take_row < T.B:
         raise ValueError(f"take row {rule.take_row} outside the map's {T.B} rows")
     if rule.widest >= gf_cuda.CHOOSE_MAX_SLOTS:
         raise ValueError(f"crush_choose takes rows of fewer than {gf_cuda.CHOOSE_MAX_SLOTS} "
@@ -99,20 +101,29 @@ def choose_tile(T, rule) -> int:
 
 
 def crush_choose(T, rule, x: torch.Tensor, reweight: torch.Tensor,
-                 draws: torch.Tensor | None = None, tile: int | None = None) -> torch.Tensor:
+                 draws: torch.Tensor | None = None, tile: int | None = None,
+                 roots: torch.Tensor | None = None) -> torch.Tensor:
     """One rule's choose step over int32 lanes ``x`` on the card ->
     [lanes, rule.width] int32 with CRUSH_ITEM_NONE holes, as
     ``mapper_torch.crush_choose_plain`` returns it.  ``T`` is the map's
     ``mapper_torch_hier.MapTables`` on the lanes' device, ``rule`` a
     ``mapper_torch_hier.FusedRule`` of that map and ``reweight`` the
-    int32 in/out weights (16.16) on the device.  The kernel adds the
-    draws it made to ``draws``, an int64 [1] tensor on the device, when
-    one is given (the wrapper allocates one otherwise).  ``tile``, the
-    threads a lane, is :func:`choose_tile`'s unless given (for a
-    measurement)."""
+    int32 in/out weights (16.16) on the device.  ``roots``, int32 lanes
+    of table rows (-1: no bucket, a row of NONE and no draw), starts
+    each lane's indep choose from its own root: a chain's later step,
+    whose ``rule.take_row`` is -1.  The kernel adds the draws it made to
+    ``draws``, an int64 [1] tensor on the device, when one is given (the
+    wrapper allocates one otherwise).  ``tile``, the threads a lane, is
+    :func:`choose_tile`'s unless given (for a measurement)."""
     lanes = x.shape[0] if isinstance(x, torch.Tensor) else 0
     dev = getattr(x, "device", None)
     _check_lanes(lanes, dev, x=x)
+    if roots is not None:
+        _check_lanes(lanes, dev, roots=roots)
+        if rule.firstn:
+            raise ValueError("crush_choose runs per-lane roots through indep only")
+    if (roots is not None) != (rule.take_row < 0):
+        raise ValueError("a rule of take_row -1 takes per-lane roots, and only it")
     if (not isinstance(reweight, torch.Tensor) or reweight.device != dev
             or reweight.dtype != torch.int32 or reweight.dim() != 1
             or not reweight.is_contiguous()):
@@ -140,11 +151,12 @@ def crush_choose(T, rule, x: torch.Tensor, reweight: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = launch(
-            x.data_ptr(), R.items.data_ptr(), R.weights.data_ptr(), R.recip.data_ptr(),
-            R.child_row.data_ptr(), R.child_type.data_ptr(), R.size.data_ptr(),
-            T.sizes[rule.take_row], R.ln.data_ptr(), reweight.data_ptr(),
-            reweight.shape[0], T.I, lanes, packed.ctypes.data, out.data_ptr(),
-            draws.data_ptr(), tile, stream,
+            x.data_ptr(), None if roots is None else roots.data_ptr(), R.items.data_ptr(),
+            R.weights.data_ptr(), R.recip.data_ptr(), R.child_row.data_ptr(),
+            R.child_type.data_ptr(), R.size.data_ptr(),
+            rule.widest if roots is not None else T.sizes[rule.take_row], R.ln.data_ptr(),
+            reweight.data_ptr(), reweight.shape[0], T.I, lanes, packed.ctypes.data,
+            out.data_ptr(), draws.data_ptr(), tile, stream,
         )
     gf_cuda._launched("crush_choose", rc)
     return out

@@ -12,7 +12,8 @@ CUDA C++ under ``ceph_tpu_torch/csrc/``:
 - ``crush_straw2`` (``csrc/crush_straw2.cu``) replaces the straw2 draw
   of the reference's CRUSH XLA programs, and ``crush_choose``
   (``csrc/crush_choose.cu``) their whole choose step of a single-step
-  rule, a tile of threads a lane; both draw through
+  rule or of one step of a chained rule, a tile of threads a lane; both
+  draw through
   ``csrc/crush_draw.cuh``.
   Their wrappers are in ``crush_cuda``, their builds, libraries and
   launch counts here.
@@ -116,11 +117,13 @@ _ARGTYPES = {
     # int32), ln tables (int64), B, I, lanes, out (int32 [3, lanes]),
     # empty (bool [lanes]), stream
     "crush_straw2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _N, _P, _P, _P],
-    # x (int32 lanes), items, weights, recip, child_row, child_type, size,
-    # the take row's size, ln tables, reweight (int32), its length, I,
+    # x (int32 lanes), roots (int32 lanes or null), items, weights, recip,
+    # child_row, child_type, size, the take row's size (with roots, the
+    # widest row below them), ln tables, reweight (int32), its length, I,
     # lanes, rule (host ints), out (int32 [lanes, width]), draws (int64
     # [1]), tile (threads a lane), stream
-    "crush_choose": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _N, _P, _P, _P, _I, _P],
+    "crush_choose": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _N, _P, _P, _P, _I,
+                     _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -35,7 +35,11 @@ over 1,000,000 lanes with random r, 64M draws.  ``crush_choose``: the
 six cases of ``chip_smoke.py`` phases 7 and 8 (:func:`choose_cases`:
 flat_64 firstn and indep, chooseleaf_16x4 and the 8 x 16 x 12 racks map
 over x = 0..999,999; the replicated and the ISA k=8 m=3 pool of
-``synthetic_map(10_240, 16)`` over their 65,536 PGs), each checked
+``synthetic_map(10_240, 16)`` over their 65,536 PGs) and, in a package
+that runs chained rules on the kernel, the second step of the racks
+map's LRC rule (:data:`LRC_PROFILE`) over x = 0..999,999: 4,000,000
+lanes, each rooted at a rack of the first step, as the chain engine
+launches it; each checked
 bit-exact against ``mapper_torch.crush_choose_plain`` (the step
 engine's loops, their draw on ``crush_straw2``), its draws counted and
 its time set beside the bound of those draws
@@ -59,7 +63,8 @@ draw of an earlier design is timed beside this one; for
 ``crush_cuda.crush_choose(T, rule, x, reweight, draws)``,
 ``crush_choose_plain`` and ``osd.churn``'s ``synthetic_map``,
 ``_pps_vec`` and ``_int32_bits`` (every tree since the first
-``crush_choose``).
+``crush_choose``); the chain's case runs only on a TREE whose
+``mapper_torch_hier`` has ``chain_rules``.
 
 ``--sweep`` builds the kernel's source once per variant of its tuning
 constants (written into copies of the source, all ``nvcc`` processes
@@ -67,7 +72,7 @@ started together; a ``gf_matmul`` variant of the plan's capacity packs
 its tables to match), and times each variant through the wrapper as
 ``--time`` does, the variants forward and then backward; a
 ``crush_choose`` variant (threads a block, the blocks an SM holds at
-least) is checked and timed at each tile on the six cases.
+least) is checked and timed at each tile on those cases.
 
 ``--sass`` writes ``cuobjdump -sass`` of the built library to
 ``OUT_DIR/<kernel>.sass`` and prints the opcode counts of one
@@ -229,6 +234,11 @@ CHOOSE_VARIANTS = [(1024, 1), (512, 2), (256, 4)]
 CRUSH_X = 1_000_000
 CHURN_OSDS, CHURN_OSDS_PER_HOST, CHURN_PG_NUM = 10_240, 16, 65536
 CHURN_EC = {"plugin": "isa", "k": "8", "m": "3"}
+# Ceph's LRC layout across racks (doc/rados/operations/erasure-code-lrc.rst,
+# "Reduce recovery bandwidth between racks"), at k=8 m=4 l=3: 4 racks,
+# 4 hosts in each, 16 chunks
+LRC_PROFILE = {"plugin": "lrc", "k": "8", "m": "4", "l": "3", "ruleset-locality": "rack",
+               "ruleset-failure-domain": "host"}
 
 
 def _time(fn, reps: int, batch: int = 20) -> float:
@@ -353,6 +363,38 @@ def crush_choose_maps(rng) -> list:
     return cases
 
 
+def lrc_pool_map(crush, pg_num: int):
+    """``build_simple`` over ``crush`` (every device up and in) with an
+    erasure pool of :data:`LRC_PROFILE` and ``pg_num`` PGs, whose rule
+    ``create_erasure_pool`` builds from the codec's placement steps
+    (``SET_CHOOSELEAF_TRIES 5``, ``TAKE``, ``CHOOSE_INDEP 4 rack``,
+    ``CHOOSELEAF_INDEP 4 host``, ``EMIT``): (map, pool, rule).  The rule
+    is added to ``crush`` itself."""
+    from ceph_tpu_torch.osd.osdmap import build_simple
+
+    m = build_simple(crush.max_devices, crush=crush)
+    m.set_erasure_code_profile("lrc_racks", LRC_PROFILE)
+    pool = m.create_erasure_pool("lrc_racks", "lrc_racks", pg_num=pg_num)
+    return m, pool, m.crush.find_rule(pool.crush_ruleset, pool.type, pool.size)
+
+
+def chain_launches(cmap, ruleno, numrep, x, rw):
+    """The routed choose steps that the chain engine makes for
+    ``ruleno`` over lanes ``x``: [(rule, lanes, roots)], one a launch."""
+    from ceph_tpu_torch.crush import mapper_torch
+    from ceph_tpu_torch.crush.mapper_torch_hier import _chain_engine, chain_rules, tables_for
+
+    calls = []
+
+    def record(T, rule, lanes, reweight, roots=None):
+        calls.append((rule, lanes, roots))
+        return mapper_torch.choose(T, rule, lanes, reweight, roots)
+
+    _chain_engine(tables_for(cmap, x.device), x, rw, chain_rules(cmap, ruleno, numrep), numrep,
+                  record)
+    return calls
+
+
 def pool_lanes(m, pool, dev):
     """What ``ChurnPlanner.map_pool`` hands the mapper for ``pool`` of
     OSDMap ``m``: (rule, int32 lanes of the PGs' pps on ``dev``, the
@@ -365,24 +407,35 @@ def pool_lanes(m, pool, dev):
 
 
 def choose_cases(dev, rng) -> dict:
-    """``crush_choose``'s six cases: name -> (tables, rule, lanes,
-    reweight) on ``dev``; phase 7's four over x = 0..CRUSH_X - 1 and
-    phase 8's two pools over their PGs."""
+    """``crush_choose``'s cases: name -> (tables, rule, lanes, reweight,
+    roots or None) on ``dev``; phase 7's four over x = 0..CRUSH_X - 1,
+    phase 8's two pools over their PGs and, where the package runs
+    chained rules on the kernel, the LRC chain's second step on the
+    racks map (lanes rooted at the first step's racks)."""
+    from ceph_tpu_torch.crush import mapper_torch_hier
     from ceph_tpu_torch.crush.mapper_torch_hier import fused_rule, reweight_lanes, tables_for
     from ceph_tpu_torch.osd.churn import synthetic_map
 
     x = torch.arange(CRUSH_X, dtype=torch.int32, device=dev)
+    maps = crush_choose_maps(rng)
     cases = [(name, cmap, ruleno, numrep, x, weights)
-             for name, cmap, ruleno, numrep, weights in crush_choose_maps(rng)]
+             for name, cmap, ruleno, numrep, weights in maps]
     m = synthetic_map(CHURN_OSDS, CHURN_OSDS_PER_HOST, replicated=(3, CHURN_PG_NUM),
                       ec=(CHURN_EC, CHURN_PG_NUM))
     for pool in m.pools.values():
         ruleno, lanes, weights = pool_lanes(m, pool, dev)
         cases.append((f"pool {pool.name} ({pool.pg_num} PGs x {pool.size})", m.crush, ruleno,
                       pool.size, lanes, weights))
-    return {name: (tables_for(cmap, dev), fused_rule(cmap, ruleno, numrep), lanes,
-                   reweight_lanes(cmap, weights, dev))
-            for name, cmap, ruleno, numrep, lanes, weights in cases}
+    out = {name: (tables_for(cmap, dev), fused_rule(cmap, ruleno, numrep), lanes,
+                  reweight_lanes(cmap, weights, dev), None)
+           for name, cmap, ruleno, numrep, lanes, weights in cases}
+    if hasattr(mapper_torch_hier, "chain_rules"):
+        _name, big, _rule, _numrep, weights = maps[3]
+        _m, pool, ruleno = lrc_pool_map(big, CHURN_PG_NUM)
+        rw = reweight_lanes(big, weights, dev)
+        _first, (rule, lanes, roots) = chain_launches(big, ruleno, pool.size, x, rw)
+        out["racks LRC chain, step 2"] = (tables_for(big, dev), rule, lanes, rw, roots)
+    return out
 
 
 def issue_rate(dev) -> float:
@@ -395,7 +448,7 @@ def issue_rate(dev) -> float:
 
 
 def time_choose(reps: int) -> None:
-    """``crush_choose`` on its six cases (:func:`choose_cases`): checked
+    """``crush_choose`` on its cases (:func:`choose_cases`): checked
     against ``crush_choose_plain``, its draws counted, timed in batches
     of 20 and one launch a sample beside its bound; with a wrapper that
     picks a tile, at each tile too."""
@@ -406,26 +459,28 @@ def time_choose(reps: int) -> None:
     package = str(Path(gf_cuda.__file__).parents[2])
     tiled = hasattr(crush_cuda, "choose_tile")
     rate = issue_rate(dev)
-    for name, (T, rule, x, rw) in choose_cases(dev, np.random.default_rng(SEED)).items():
+    for name, (T, rule, x, rw, roots) in choose_cases(dev, np.random.default_rng(SEED)).items():
+        kw = {} if roots is None else {"roots": roots}
         counted = torch.zeros(1, dtype=torch.int64, device=dev)
-        got = crush_cuda.crush_choose(T, rule, x, rw, counted)
-        want = mapper_torch.crush_choose_plain(T, rule, x, rw)
+        got = crush_cuda.crush_choose(T, rule, x, rw, counted, **kw)
+        want = mapper_torch.crush_choose_plain(T, rule, x, rw, **kw)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"crush_choose {name}: differs from crush_choose_plain")
         draws = int(counted.item())
-        ms = _time(lambda: crush_cuda.crush_choose(T, rule, x, rw), reps)
+        ms = _time(lambda: crush_cuda.crush_choose(T, rule, x, rw, **kw), reps)
         bound = draws * INSTRUCTIONS_PER_DRAW / rate * 1e3
         row = {"package": package, "kernel": "crush_choose", "case": name,
                "lanes": x.shape[0], "width": rule.width, "draws": draws, "ms": ms,
-               "ms_one_launch": _time(lambda: crush_cuda.crush_choose(T, rule, x, rw),
+               "ms_one_launch": _time(lambda: crush_cuda.crush_choose(T, rule, x, rw, **kw),
                                       5 * reps, batch=1),
                "bound_ms": bound, "share_of_bound": bound / ms}
         if tiled:
-            row.update(tile=crush_cuda.choose_tile(T, rule), take_row=T.sizes[rule.take_row],
+            row.update(tile=crush_cuda.choose_tile(T, rule),
+                       take_row=T.sizes[rule.take_row] if roots is None else None,
                        widest_row=rule.widest, row_gcd=rule.row_gcd)
             row["ms_by_tile"] = {
-                g: _time(lambda: crush_cuda.crush_choose(T, rule, x, rw, tile=g), reps)
+                g: _time(lambda: crush_cuda.crush_choose(T, rule, x, rw, tile=g, **kw), reps)
                 for g in gf_cuda.CHOOSE_TILES}
         print(json.dumps(row), flush=True)
 
@@ -524,7 +579,7 @@ def sweep(kernel: Kernel, reps: int) -> None:
 
 def sweep_choose(reps: int) -> None:
     """``crush_choose``'s variants of CHOOSE_TUNING, each checked against
-    ``crush_choose_plain`` and timed at every tile on the six cases, the
+    ``crush_choose_plain`` and timed at every tile on its cases, the
     variants forward and then backward."""
     from ceph_tpu_torch.crush import mapper_torch
     from ceph_tpu_torch.ops import crush_cuda
@@ -536,22 +591,23 @@ def sweep_choose(reps: int) -> None:
             for fn, stats in _ptxas(log).items() if "crush_choose_kernel" in fn}}), flush=True)
     dev = torch.device("cuda")
     cases = choose_cases(dev, np.random.default_rng(SEED))
-    want = {name: mapper_torch.crush_choose_plain(T, rule, x, rw)
-            for name, (T, rule, x, rw) in cases.items()}
+    want = {name: mapper_torch.crush_choose_plain(T, rule, x, rw, roots)
+            for name, (T, rule, x, rw, roots) in cases.items()}
     tags = list(libs)
     times: dict[tuple[str, str, int], list] = {}
     try:
         for tag in tags + tags[::-1]:
             gf_cuda._LIBS["crush_choose"] = _Lib("crush_choose", libs[tag][1])
-            for name, (T, rule, x, rw) in cases.items():
+            for name, (T, rule, x, rw, roots) in cases.items():
                 for g in gf_cuda.CHOOSE_TILES:
-                    got = crush_cuda.crush_choose(T, rule, x, rw, tile=g)
+                    got = crush_cuda.crush_choose(T, rule, x, rw, tile=g, roots=roots)
                     torch.cuda.synchronize()
                     if not torch.equal(got, want[name]):
                         raise AssertionError(f"{tag} {name} tile {g}: differs from "
                                              "crush_choose_plain")
                     times.setdefault((tag, name, g), []).append(_time(
-                        lambda: crush_cuda.crush_choose(T, rule, x, rw, tile=g), reps))
+                        lambda: crush_cuda.crush_choose(T, rule, x, rw, tile=g, roots=roots),
+                        reps))
     finally:
         gf_cuda._LIBS.pop("crush_choose", None)
     for tag in tags:

@@ -74,15 +74,23 @@ Phases, each fatal on any mismatch or exception:
    counts set to 0, the main path: ``CrushTester`` (the ``crushtool
    --test`` engine) over x = 0..999,999 on flat_64 firstn and indep,
    chooseleaf_16x4, 8 racks x 16 hosts x 12 devices (each one
-   ``crush_choose`` launch), and the chained LRC rule (the step engine
-   on ``crush_straw2``), each twice, three of them a third time under
-   ``torch.profiler`` (the card's busy and idle time), and ``crushtool
-   --test`` once; then ``CrushTester`` through the fused and the step
-   routes in turns on the four single-step cases; then each case's
-   whole output equals the plain route (the step engine with the plain
-   draw) and the step route (the step engine on ``crush_straw2``), 4096
-   evenly spread lanes equal the scalar mapper, and the tester's counts
-   equal a count of the output;
+   ``crush_choose`` launch), the chained LRC rule of
+   ``tests/test_crush_vec.py`` and the racks map's LRC k=8 m=4 l=3 rule
+   (``create_erasure_pool``'s chain: 4 racks, 4 hosts in each; each
+   chain one ``crush_choose`` launch a step, no ``crush_straw2``), and
+   over x = 0..99,999 the racks map's rule at 40 slots, above the
+   kernel's 32 (the step engine on ``crush_straw2``), each twice, four
+   of them a third time under ``torch.profiler`` (the card's busy and
+   idle time), and ``crushtool --test`` once; then ``CrushTester``
+   through the fused and the step routes in turns on the six cases the
+   kernel takes; then each case's whole output equals the plain route
+   (the step engine with the plain draw; for the 16- and 40-slot rules
+   on a tenth of the inputs) and the step route (the step engine on
+   ``crush_straw2``), 2048 evenly spread lanes (256 at 16 slots, 32 at
+   40) equal the scalar mapper, and the tester's counts equal a count of
+   the output.  The racks LRC chain's second step alone (4M
+   lanes, each rooted at a rack of the first step) is held against its
+   plain version and timed beside the bound of its draws;
 8. the cluster map and device-planned churn: ``synthetic_map`` of
    10,240 OSDs (640 hosts of 16) with a replicated pool (size 3,
    chooseleaf firstn over hosts) and an ISA k=8 m=3 pool (chooseleaf
@@ -105,7 +113,15 @@ Phases, each fatal on any mismatch or exception:
    pool of each of the four maps equal the scalar
    ``pg_to_up_acting_osds``, and one ``map_all`` runs under
    ``torch.profiler`` (the card's busy and idle time, ``crush_choose``'s
-   share);
+   share).  Last, Ceph's LRC layout across racks: ``build_simple(1536)``
+   over phase 7's racks map with an LRC k=8 m=4 l=3 pool of 65536 PGs
+   from ``create_erasure_pool`` (``ruleset-locality=rack``,
+   ``ruleset-failure-domain=host``: a chained rule of 16 slots);
+   ``map_pool`` on the card must take two ``crush_choose`` launches and
+   no ``crush_straw2``, equal the step route's in turns and 64 sampled
+   PGs' ``pg_to_up_acting_osds``; then one host down, planned on both
+   routes, equal, with PGs remapped and 64 of the post-map's PGs equal
+   to the scalar walk;
 9. the shared accelerator service, with the launch counts set to 0 just
    before it: one ``AccelDaemon("accel.0")`` on the card with
    ``Config()``'s dispatcher settings, bound to 127.0.0.1, fed by 4
@@ -414,10 +430,18 @@ INT32_OPS_PER_CLOCK_PER_SM = 64
 # gf_double)
 OPS_PER_DOUBLING = 4
 
-# phase 7: CRUSH inputs per case (crushtool --test --max-x 999999), lanes
-# checked against the scalar mapper per case
+# phase 7: CRUSH inputs per case (crushtool --test --max-x 999999) and
+# lanes checked against the scalar mapper; a rule of more than 4 slots
+# holds a tenth of its inputs against the plain route and an eighth of
+# the lanes against the scalar walk (each costs about a slot's worth a
+# lane: the scalar walk about a millisecond a slot on the card's host);
+# the rule wider than crush_choose's 32 slots, which the step engine
+# runs, maps fewer inputs
 CRUSH_X = 1_000_000
-CRUSH_SAMPLE = 4096
+CRUSH_SAMPLE = 2048
+CRUSH_WIDE_SLOTS = 40
+CRUSH_WIDE_X = 100_000
+CRUSH_WIDE_SAMPLE = 32
 
 # phase 8: a 10k-OSD cluster (tests/test_churn.py:200's shape, 640 hosts
 # of 16) whose two pools sit at Ceph's mon_max_pool_pg_num default, 65536
@@ -1271,13 +1295,19 @@ def crush_cases(rng):
     (``CrushMap.flat(64)`` firstn and indep; ``bench.py``'s
     chooseleaf_16x4; 8 racks x 16 hosts x 12 devices, 1536 OSDs with
     uneven device weights, 12 reweighted out or down, chooseleaf firstn
-    over hosts), and the chained LRC rule of ``tests/test_crush_vec.py``
-    on its rack map (choose 2 racks, then chooseleaf 2 hosts each: the
-    rule's four positions)."""
+    over hosts); the chained LRC rule of ``tests/test_crush_vec.py`` on
+    its rack map (choose 2 racks, then chooseleaf 2 hosts each: the
+    rule's four positions); on the racks map, with its weights, the rule
+    ``create_erasure_pool`` builds for an LRC k=8 m=4 l=3 pool across
+    racks (``gf_matmul_sweep.lrc_pool_map``: choose 4 racks, then
+    chooseleaf 4 hosts each, 16 positions), both chains one
+    ``crush_choose`` launch a step; and the racks map's chooseleaf rule
+    at ``CRUSH_WIDE_SLOTS`` slots, which the kernel does not take (the
+    step engine on ``crush_straw2``)."""
     from ceph_tpu_torch.crush.map import (
         CRUSH_BUCKET_STRAW2, CRUSH_RULE_CHOOSE_INDEP, CRUSH_RULE_CHOOSELEAF_INDEP,
         CRUSH_RULE_EMIT, CRUSH_RULE_TAKE, CrushMap, Rule)
-    from ceph_tpu_torch.tools.gf_matmul_sweep import crush_choose_maps
+    from ceph_tpu_torch.tools.gf_matmul_sweep import crush_choose_maps, lrc_pool_map
 
     cases = crush_choose_maps(rng)
     lrc = CrushMap()  # tests/test_crush_vec.py _build_racks(): 2 racks x 3 hosts
@@ -1300,7 +1330,36 @@ def crush_cases(rng):
     rule.step(CRUSH_RULE_TAKE, lrc.root_id()).step(CRUSH_RULE_CHOOSE_INDEP, 2, 2)
     rule.step(CRUSH_RULE_CHOOSELEAF_INDEP, 2, 1).step(CRUSH_RULE_EMIT)
     cases.append(("lrc chain 2 racks x 2 hosts", lrc, lrc.add_rule(rule), 4, None))
+    _name, big, big_rule, _numrep, big_w = cases[3]
+    _m, pool, lrc_rule = lrc_pool_map(big, CHURN_PG_NUM)
+    cases.append(("racks_8x16x12 LRC k=8 m=4 l=3 (4 racks x 4 hosts)", big, lrc_rule, pool.size,
+                  big_w))
+    cases.append((f"racks_8x16x12 chooseleaf, {CRUSH_WIDE_SLOTS} slots (step engine)", big,
+                  big_rule, CRUSH_WIDE_SLOTS, big_w))
     return cases
+
+
+def crush_case_x(numrep: int) -> tuple[int, int, int]:
+    """(inputs, the first of them held against the plain route, lanes
+    held against the scalar mapper) of a phase-7 case of ``numrep``
+    slots."""
+    if numrep == CRUSH_WIDE_SLOTS:
+        return CRUSH_WIDE_X, CRUSH_WIDE_X // 10, CRUSH_WIDE_SAMPLE
+    if numrep > 4:
+        return CRUSH_X, CRUSH_X // 10, CRUSH_SAMPLE // 8
+    return CRUSH_X, CRUSH_X, CRUSH_SAMPLE
+
+
+def crush_kernel_launches(cmap, ruleno, numrep) -> int:
+    """``crush_choose`` launches a run of the case's rule (1 for a
+    single-step rule, one a step of a chain the kernel takes: phase 7's
+    chains cut no region short), 0 where the step engine runs it."""
+    from ceph_tpu_torch.crush.mapper_torch_hier import chain_rules, fused_rule
+
+    if fused_rule(cmap, ruleno, numrep) is not None:
+        return 1
+    steps = chain_rules(cmap, ruleno, numrep)
+    return 0 if steps is None else len(steps)
 
 
 def straw2_rows_for_checks(dev, rng, big):
@@ -1382,37 +1441,46 @@ def crush_route(route: str):
         mapper_torch._engine, crush_torch.straw2 = engine, draw
 
 
-def time_choose(name, T, rule, x, rw, bound, per_draw, route="plain") -> tuple:
+def time_choose(name, T, rule, x, rw, bound, per_draw, route="plain", roots=None) -> tuple:
     """``crush_choose`` on one case: checked bit-exact against
     ``crush_choose_plain`` (the step engine's loops; under ``route``
     "plain" their draw is ``straw2_plain``, under "fused" the
     ``crush_straw2`` kernel), its draws counted, timed one launch a
     sample and in batches of 20 beside the bound of its draws
     (``per_draw`` SASS instructions a draw) and its bytes (x in, each
-    slot out, the take row and the reweight vector read once).  Returns
-    (max_abs_err, ms of one launch, plain ms, bound ms, bound by)."""
+    slot out, the take row and the reweight vector read once; with
+    ``roots``, a chain's later step, a root a lane in and no take row).
+    Returns (max_abs_err, ms of one launch, plain ms, bound ms, bound
+    by)."""
     import torch
 
     from ceph_tpu_torch.crush import mapper_torch
     from ceph_tpu_torch.ops import crush_cuda
 
     counted = torch.zeros(1, dtype=torch.int64, device=x.device)
-    got = crush_cuda.crush_choose(T, rule, x, rw, counted)
+    got = crush_cuda.crush_choose(T, rule, x, rw, counted, roots=roots)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with crush_route(route):
         start.record()
-        want = mapper_torch.crush_choose_plain(T, rule, x, rw)
+        want = mapper_torch.crush_choose_plain(T, rule, x, rw, roots)
         end.record()
     torch.cuda.synchronize()
     check_equal(f"crush_choose {name}, {x.shape[0]} lanes", got, want)
     plain_ms = start.elapsed_time(end)
     draws = int(counted.item())
-    ms = time_cuda(lambda: crush_cuda.crush_choose(T, rule, x, rw), reps=30)
-    batched = time_cuda(lambda: crush_cuda.crush_choose(T, rule, x, rw), reps=10, batch=20)
-    nbytes = x.shape[0] * 4 * (1 + rule.width) + T.sizes[rule.take_row] * 24 + rw.numel() * 4
+    ms = time_cuda(lambda: crush_cuda.crush_choose(T, rule, x, rw, roots=roots), reps=30)
+    batched = time_cuda(lambda: crush_cuda.crush_choose(T, rule, x, rw, roots=roots), reps=10,
+                        batch=20)
+    if roots is None:
+        start_rows = f"rows of {T.sizes[rule.take_row]} at the take"
+        nbytes = x.shape[0] * 4 * (1 + rule.width) + T.sizes[rule.take_row] * 24
+    else:
+        start_rows = "a root row a lane"
+        nbytes = x.shape[0] * 4 * (2 + rule.width)
+    nbytes += rw.numel() * 4
     b_ms, b_by = bound(nbytes, draws * per_draw)
     log(f"  crush_choose on {name} over {x.shape[0]} lanes, tile {crush_cuda.choose_tile(T, rule)} "
-        f"(rows of {T.sizes[rule.take_row]} at the take, {rule.widest} at most, their gcd "
+        f"({start_rows}, {rule.widest} at most, their gcd "
         f"{rule.row_gcd}): bit-exact against "
         f"crush_choose_plain ({route} route); {draws} draws counted "
         f"({draws / x.shape[0]:.4g} a lane); {ms} ms one launch a sample, {batched} ms in "
@@ -1438,7 +1506,7 @@ def run_crush(dev, rng) -> list[dict]:
     from ceph_tpu_torch.ops import crush_cuda, crush_torch, gf_cuda
     from ceph_tpu_torch.tools import crushtool
     from ceph_tpu_torch.tools.gf_matmul_sweep import (
-        INSTRUCTIONS_PER_DRAW, ISSUE_LANES_PER_CLOCK_PER_SM)
+        INSTRUCTIONS_PER_DRAW, ISSUE_LANES_PER_CLOCK_PER_SM, chain_launches)
 
     cases = crush_cases(rng)
     synthetic, big_rows = straw2_rows_for_checks(dev, rng, cases[3][1])
@@ -1515,26 +1583,39 @@ def run_crush(dev, rng) -> list[dict]:
         rule = fused_rule(cmap, ruleno, numrep)
         time_choose(name, tables_for(cmap, dev), rule, flat_x[:n],
                     reweight_lanes(cmap, weights, dev), bound, INSTRUCTIONS_PER_DRAW, route)
+    # the racks LRC chain's second step as its main path launches it: 4M
+    # lanes, each rooted at a rack that the first step chose (the plain
+    # version's draw on crush_straw2)
+    name, cmap, ruleno, numrep, weights = cases[5]
+    rw = reweight_lanes(cmap, weights, dev)
+    _first, (rule, lanes, roots) = chain_launches(cmap, ruleno, numrep, flat_x, rw)
+    time_choose(f"{name}, step 2", tables_for(cmap, dev), rule, lanes, rw, bound,
+                INSTRUCTIONS_PER_DRAW, "fused", roots=roots)
 
     # 3. the main path: CrushTester (crushtool --test's engine) on each
-    # case; a rule that crush_choose takes launches it, the chain crush_straw2
+    # case; a rule that crush_choose takes launches it once (a chain once
+    # a step) and crush_straw2 never, the wide rule crush_straw2
     xs = np.arange(CRUSH_X, dtype=np.uint32)
     reports = {}
-    single = {name: fused_rule(cmap, ruleno, numrep) is not None
-              for name, cmap, ruleno, numrep, _w in cases}
+    on_kernel = {name: crush_kernel_launches(cmap, ruleno, numrep)
+                 for name, cmap, ruleno, numrep, _w in cases}
     gf_cuda.reset_launches()
     for name, cmap, ruleno, numrep, weights in cases:
+        n_x, _plain, _sample = crush_case_x(numrep)
         tester = CrushTester(cmap)
-        tester.min_x, tester.max_x = 0, CRUSH_X - 1
+        tester.min_x, tester.max_x = 0, n_x - 1
         tester.weight = weights
-        kernel = "crush_choose" if single[name] else "crush_straw2"
+        want = ({"crush_choose": on_kernel[name], "crush_straw2": 0} if on_kernel[name]
+                else None)
         for run in ("first", "second"):  # the first builds the map's tables
             before = gf_cuda.launch_counts()
             rep = tester.test_rule(ruleno, numrep)
             torch.cuda.synchronize()
             launched = {k: c - before[k] for k, c in gf_cuda.launch_counts().items()
                         if k.startswith("crush")}
-            if rep.backend != "vectorized" or launched[kernel] == 0:
+            if (rep.backend != "vectorized" or (want is not None and launched != want)
+                    or (want is None and (launched["crush_straw2"] == 0
+                                          or launched["crush_choose"]))):
                 raise AssertionError(f"{name}: backend {rep.backend}, launches {launched}")
             if run == "second" and (rep.device_counts, rep.bad_mappings) != (
                     reports[name].device_counts, reports[name].bad_mappings):
@@ -1543,7 +1624,7 @@ def run_crush(dev, rng) -> list[dict]:
             log(f"  {name}, {run} run: CrushTester {rep.num_inputs} x numrep {numrep} in "
                 f"{rep.elapsed_seconds} s = {rep.num_inputs / rep.elapsed_seconds} mappings/s "
                 f"({rep.backend}; launches {launched}; bad {rep.bad_mappings})")
-    for name, cmap, ruleno, numrep, weights in (cases[0], cases[3], cases[4]):
+    for name, cmap, ruleno, numrep, weights in (cases[0], cases[3], cases[4], cases[5]):
         log(f"  {name}, a third run under torch.profiler: {profile_tester(cmap, ruleno, numrep, weights)}")
     path = gf_cuda.BUILD_DIR / "crush_16x4.json"
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -1560,7 +1641,7 @@ def run_crush(dev, rng) -> list[dict]:
 
     # 4. CrushTester through the fused route and the step route, in turns
     for name, cmap, ruleno, numrep, weights in cases:
-        if not single[name]:
+        if not on_kernel[name]:
             continue
         tester = CrushTester(cmap)
         tester.min_x, tester.max_x = 0, CRUSH_X - 1
@@ -1579,22 +1660,23 @@ def run_crush(dev, rng) -> list[dict]:
     # route, sampled lanes == the scalar mapper, the tester's counts ==
     # its bincount
     for name, cmap, ruleno, numrep, weights in cases:
-        out = mapper_torch.vec_do_rule(cmap, ruleno, xs, numrep, weight=weights)
+        n_x, n_plain, n_sample = crush_case_x(numrep)
+        out = mapper_torch.vec_do_rule(cmap, ruleno, xs[:n_x], numrep, weight=weights)
         before = gf_cuda.launch_counts()
         with crush_route("plain"):
             t0 = time.perf_counter()
-            plain = mapper_torch.vec_do_rule(cmap, ruleno, xs, numrep, weight=weights)
+            plain = mapper_torch.vec_do_rule(cmap, ruleno, xs[:n_plain], numrep, weight=weights)
             t_plain = time.perf_counter() - t0
         if gf_cuda.launch_counts() != before:
             raise AssertionError(f"{name}: the plain route launched a kernel")
         with crush_route("step"):
-            step = mapper_torch.vec_do_rule(cmap, ruleno, xs, numrep, weight=weights)
+            step = mapper_torch.vec_do_rule(cmap, ruleno, xs[:n_x], numrep, weight=weights)
         if gf_cuda.launch_counts()["crush_choose"] != before["crush_choose"]:
             raise AssertionError(f"{name}: the step route launched crush_choose")
         for what, other in (("plain", plain), ("step", step)):
-            if out.shape != other.shape or not np.array_equal(out, other):
+            if out.shape[1] != other.shape[1] or not np.array_equal(out[:len(other)], other):
                 raise AssertionError(f"{name}: the main route differs from the {what} route")
-        sample = np.linspace(0, CRUSH_X - 1, CRUSH_SAMPLE).astype(np.int64)
+        sample = np.linspace(0, n_x - 1, n_sample).astype(np.int64)
         ws = mapper.Workspace(cmap)
         for x in sample:
             want = mapper.crush_do_rule(cmap, ruleno, int(x), numrep, weight=weights,
@@ -1604,18 +1686,20 @@ def run_crush(dev, rng) -> list[dict]:
             if not np.array_equal(out[x], row):
                 raise AssertionError(f"{name} x={x}: {list(out[x])} != scalar {want}")
         t0 = time.perf_counter()
-        for x in range(1000):
+        n_scalar = n_sample // 8
+        for x in range(n_scalar):
             mapper.crush_do_rule(cmap, ruleno, x, numrep, weight=weights, workspace=ws)
-        scalar_us = (time.perf_counter() - t0) / 1000 * 1e6
+        scalar_us = (time.perf_counter() - t0) / n_scalar * 1e6
         placed = out != CRUSH_ITEM_NONE
         vals, counts = np.unique(out[placed], return_counts=True)
         rep = reports[name]
         if (rep.device_counts != {int(v): int(c) for v, c in zip(vals, counts)}
                 or rep.bad_mappings != int((placed.sum(axis=1) < out.shape[1]).sum())):
             raise AssertionError(f"{name}: CrushTester counts differ from the output's")
-        route = "crush_choose" if single[name] else "the step engine's crush_straw2"
-        log(f"  {name}: [{CRUSH_X}, {out.shape[1]}] main route ({route}) == plain route "
-            f"({t_plain:.3f} s) == step route, {CRUSH_SAMPLE} lanes == scalar mapper, counts "
+        route = "crush_choose" if on_kernel[name] else "the step engine's crush_straw2"
+        log(f"  {name}: [{n_x}, {out.shape[1]}] main route ({route}) == plain route on the "
+            f"first {n_plain} ({t_plain:.3f} s) == step route, {n_sample} lanes == scalar "
+            f"mapper, counts "
             f"== bincount; scalar mapper {scalar_us} us a mapping")
     straw2_row["launches"] = main_path["crush_straw2"]
     choose_row = {
@@ -1654,11 +1738,10 @@ def run_churn(dev, rng) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from ceph_tpu_torch.crush import mapper_torch
-    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
     from ceph_tpu_torch.crush.mapper_torch_hier import (
         MapTables, fused_rule, reweight_lanes, tables_for)
     from ceph_tpu_torch.osd.churn import ChurnPlanner, apply_churn, synthetic_map
-    from ceph_tpu_torch.osd.osdmap import OSDMap, PGid
+    from ceph_tpu_torch.osd.osdmap import OSDMap
     from ceph_tpu_torch.ops import gf_cuda
     from ceph_tpu_torch.tools.gf_matmul_sweep import (
         INSTRUCTIONS_PER_DRAW, ISSUE_LANES_PER_CLOCK_PER_SM, pool_lanes)
@@ -1816,20 +1899,8 @@ def run_churn(dev, rng) -> dict:
     for name, mp, maps in [("pre-churn", m, pre)] + [
             (ev[0], post, pm) for ev, post, (_plan, pm) in zip(events, posts, plans)]:
         for pid, mapping in maps.items():
-            seeds = rng.choice(mp.pools[pid].pg_num, size=CHURN_SAMPLES, replace=False)
-            idx = torch.as_tensor(seeds, device=dev)
-            rows = mapping.acting.index_select(0, idx).tolist()
-            prims = mapping.primary.index_select(0, idx).tolist()
-            width = mapping.acting.shape[1]
-            for seed, row, prim in zip(seeds, rows, prims):
-                t0 = time.perf_counter()
-                _u, _upp, acting, primary = mp.pg_to_up_acting_osds(PGid(pid, int(seed)))
-                scalar_s += time.perf_counter() - t0
-                walked += 1
-                want = (list(acting[:width]) + [CRUSH_ITEM_NONE] * width)[:width]
-                if row != want or prim != primary:
-                    raise AssertionError(f"{name} pg {pid}.{int(seed):x}: card {row} "
-                                         f"primary {prim} != scalar {want} primary {primary}")
+            scalar_s += sample_scalar(name, mp, pid, mapping, rng) * CHURN_SAMPLES
+            walked += CHURN_SAMPLES
     log(f"  {walked} sampled PGs == the scalar pg_to_up_acting_osds; the scalar walk "
         f"{scalar_s / walked * 1e3} ms a PG")
     if planner.verify_oracle(m, samples=8, rng=rng) != 16:
@@ -1850,7 +1921,102 @@ def run_churn(dev, rng) -> dict:
     else:
         log(f"  map_all under torch.profiler: {wall * 1e3} ms wall; device time not "
             "measured (no kernel events)")
+    run_lrc_pool(dev, rng)
     return launches
+
+
+def sample_scalar(what: str, m, pid: int, mapping, rng) -> float:
+    """CHURN_SAMPLES PGs of pool ``pid``'s ``mapping`` against the scalar
+    ``pg_to_up_acting_osds`` of map ``m``.  Returns the scalar walk's
+    seconds a PG."""
+    import torch
+
+    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.osd.osdmap import PGid
+
+    seeds = rng.choice(m.pools[pid].pg_num, size=CHURN_SAMPLES, replace=False)
+    idx = torch.as_tensor(seeds, device=mapping.acting.device)
+    rows = mapping.acting.index_select(0, idx).tolist()
+    prims = mapping.primary.index_select(0, idx).tolist()
+    width = mapping.acting.shape[1]
+    t0 = time.perf_counter()
+    for seed, row, prim in zip(seeds, rows, prims):
+        _u, _upp, acting, primary = m.pg_to_up_acting_osds(PGid(pid, int(seed)))
+        want = (list(acting[:width]) + [CRUSH_ITEM_NONE] * width)[:width]
+        if row != want or prim != primary:
+            raise AssertionError(f"{what} pg {pid}.{int(seed):x}: card {row} primary {prim} "
+                                 f"!= scalar {want} primary {primary}")
+    return (time.perf_counter() - t0) / len(seeds)
+
+
+def run_lrc_pool(dev, rng) -> None:
+    """Phase 8's last part: Ceph's LRC layout across racks
+    (doc/rados/operations/erasure-code-lrc.rst, "Reduce recovery
+    bandwidth between racks", at k=8 m=4 l=3) on phase 7's racks map:
+    ``build_simple(1536)`` with every OSD up and in, an LRC pool of
+    CHURN_PG_NUM PGs whose rule ``create_erasure_pool`` builds (choose 4
+    racks, chooseleaf 4 hosts in each: 16 slots).  ``map_pool`` must
+    take one ``crush_choose`` launch a step and no ``crush_straw2``, equal
+    the step route's and the scalar walk; one host down is planned on
+    both routes, which must agree."""
+    import torch
+
+    from ceph_tpu_torch.crush.mapper_torch_hier import chain_rules
+    from ceph_tpu_torch.osd.churn import ChurnPlanner, apply_churn
+    from ceph_tpu_torch.ops import gf_cuda
+    from ceph_tpu_torch.tools.gf_matmul_sweep import crush_choose_maps, lrc_pool_map
+
+    _name, racks, _rule, _numrep, _w = crush_choose_maps(rng)[3]
+    m, pool, ruleno = lrc_pool_map(racks, CHURN_PG_NUM)
+    steps = chain_rules(m.crush, ruleno, pool.size)
+    if steps is None:
+        raise AssertionError(f"crush_choose does not take the LRC pool's rule {ruleno}")
+    planner = ChurnPlanner(m)
+    times, before = [], gf_cuda.launch_counts()
+    for _run in ("first", "second"):  # the first also builds the map's tables
+        t0 = time.perf_counter()
+        mapping = planner.map_pool(m, pool)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launched = {k: c - before[k] for k, c in gf_cuda.launch_counts().items()
+                if k.startswith("crush")}
+    if not mapping.device or launched != {"crush_choose": 2 * len(steps), "crush_straw2": 0}:
+        raise AssertionError(f"LRC pool: device {mapping.device}, launches {launched}")
+    log(f"  LRC pool {pool.name} on racks_8x16x12 ({m.max_osd} OSDs; {pool.pg_num} PGs x "
+        f"{pool.size}, {len(steps)} chained steps): map_pool first {times[0] * 1e3} ms, "
+        f"second {times[1] * 1e3} ms = {pool.pg_num / times[1]} PGs mapped/s; launches "
+        f"{launched} in the two")
+    route_ms = {"fused": [], "step": []}
+    for route in ("fused", "step", "step", "fused"):
+        with crush_route(route):
+            t0 = time.perf_counter()
+            other = planner.map_pool(m, pool)
+            torch.cuda.synchronize()
+            route_ms[route].append((time.perf_counter() - t0) * 1e3)
+        check_equal(f"LRC pool acting, {route} route", other.acting, mapping.acting)
+        check_equal(f"LRC pool primary, {route} route", other.primary, mapping.primary)
+    scalar_s = sample_scalar("LRC pool", m, pool.id, mapping, rng)
+    log(f"  LRC pool map_pool in turns (fused, step, step, fused), ms: fused "
+        f"{route_ms['fused']}, step (crush_straw2) {route_ms['step']}; every PG equal; "
+        f"{CHURN_SAMPLES} PGs == the scalar pg_to_up_acting_osds ({scalar_s * 1e3} ms a PG)")
+    host = racks.buckets[racks.buckets[racks.root_id()].items[0]].items[0]
+    down = list(racks.buckets[host].items)
+    post = apply_churn(m, kill=down)
+    t0 = time.perf_counter()
+    plan = planner.plan(post)
+    t_plan = time.perf_counter() - t0
+    with crush_route("step"):
+        step_plan = planner.plan(post)
+    summary = plan.summary()
+    if (not plan.device or not summary["pgs_remapped"] or step_plan.remapped != plan.remapped
+            or step_plan.summary() != summary):
+        raise AssertionError(f"LRC pool, host down: plan {summary} (device {plan.device}), "
+                             f"the step route's {step_plan.summary()}")
+    post_map = planner.map_pool(post, post.pools[pool.id])
+    sample_scalar("LRC pool, host down", post, pool.id, post_map, rng)
+    log(f"  LRC pool, host {racks.item_names.get(host, host)} (osd.{down[0]}-{down[-1]}) down: "
+        f"plan {t_plan} s, {summary['pgs_remapped']} PGs remapped, {summary['moved_shards']} "
+        f"shards moved; == the step route's plan; {CHURN_SAMPLES} PGs == the scalar walk")
 
 
 # -- phase 9: the shared accelerator service --------------------------------------
@@ -4103,7 +4269,7 @@ def run_storm(dev, rng, root: str | None = None) -> dict:
 
     import torch
 
-    from ceph_tpu_torch.crush.mapper_torch_hier import fused_rule
+    from ceph_tpu_torch.crush.mapper_torch_hier import chain_rules, fused_rule
     from ceph_tpu_torch.ops import gf_cuda
     from ceph_tpu_torch.rados import ClientLoad, MiniCluster, StormDriver
 
@@ -4218,14 +4384,15 @@ def run_storm(dev, rng, root: str | None = None) -> dict:
             launches["part"] = {nm: c - start[nm] for nm, c in snapshot().items()}
             log(f"  launches in the part: {launches['part']}; {device_batches[0]} device-lane "
                 f"launches over the OSDs' dispatchers, no op off the card")
-            # the plans' CRUSH kernel: crush_choose for a single-step rule,
-            # the step engine's crush_straw2 otherwise
+            # the plans' CRUSH kernel: crush_choose for a single-step rule
+            # or a chain it takes, the step engine's crush_straw2 otherwise
             m = cl.osdmap
             crush = set()
             for pool in m.pools.values():
                 ruleno = m.crush.find_rule(pool.crush_ruleset, pool.type, pool.size)
-                single = fused_rule(m.crush, ruleno, pool.size) is not None
-                crush.add("crush_choose" if single else "crush_straw2")
+                kernel = (fused_rule(m.crush, ruleno, pool.size) is not None
+                          or chain_rules(m.crush, ruleno, pool.size) is not None)
+                crush.add("crush_choose" if kernel else "crush_straw2")
             for name in (*gf_cuda.EC_KERNELS, *sorted(crush)):
                 if launches["part"][name] == 0:
                     raise AssertionError(f"{name} was not launched in phase 15 (a)")

@@ -28,6 +28,7 @@ from ceph_tpu.crush.map import (
     CRUSH_RULE_CHOOSE_FIRSTN,
     CRUSH_RULE_CHOOSE_INDEP,
     CRUSH_RULE_CHOOSELEAF_FIRSTN,
+    CRUSH_RULE_CHOOSELEAF_INDEP,
     CRUSH_RULE_EMIT,
     CRUSH_RULE_SET_CHOOSELEAF_STABLE,
     CRUSH_RULE_SET_CHOOSELEAF_TRIES,
@@ -37,6 +38,7 @@ from ceph_tpu.crush.map import (
     Rule,
     Tunables,
 )
+from ceph_tpu_torch.crush import mapper as port_mapper
 from ceph_tpu_torch.crush import mapper_torch, mapper_torch_hier
 from ceph_tpu_torch.crush.hashes import crush_hash32_2, crush_hash32_3
 from ceph_tpu_torch.ops import crush_cuda, crush_torch, gf_cuda
@@ -313,13 +315,16 @@ def _tile_slot(items, weights, recip, n, x, r, ln, G):
     return keys[0] & ((1 << SLOT_BITS) - 1)
 
 
-def _emulate_crush_choose_tiled(T, rule, xs, reweight, G):
+def _emulate_crush_choose_tiled(T, rule, xs, reweight, G, roots=None):
     """``csrc/crush_choose.cu`` in Python, lane by lane, over the packed
     tables of ``T`` (a CPU ``MapTables``) as a tile of G threads walks
     them: the take row staged apart, each row's draw split over the
     tile (:func:`_tile_slot`), ``out``/``out2`` in one shared array of
     the lane's width, a collision test as each thread's own slots t, t +
-    G, ... and one vote, each placed slot written once.  Returns
+    G, ... and one vote, each placed slot written once.  With ``roots``
+    (a chain's later step, ``crush_choose_roots_kernel``), lane j's
+    indep choose starts from row ``roots[j]``, read like a deeper row,
+    and a root of -1 gives a row of NONE and no draw.  Returns
     ([len(xs), width] rows, the draws made, each row's items once a
     lane)."""
     R = T.rows
@@ -327,16 +332,19 @@ def _emulate_crush_choose_tiled(T, rule, xs, reweight, G):
                                                         R.child_type))
     recip = R.recip.numpy().view(np.uint64).tolist()
     sizes, ln, rw = T.sizes, R.ln.tolist(), list(reweight)
-    tr, n_root = rule.take_row, T.sizes[rule.take_row]
-    staged = tuple(t[tr][:n_root] for t in (items, weights, recip, crow, ctype))
+    tr = rule.take_row
+    if roots is None:
+        n_root = T.sizes[tr]
+        staged = tuple(t[tr][:n_root] for t in (items, weights, recip, crow, ctype))
     width = rule.width
     draws = [0]
 
     def descend(x, row, r, want_type):
         for _level in range(rule.depth + 1):
-            tabs = staged if row == tr else (items[row], weights[row], recip[row], crow[row],
-                                            ctype[row])
-            n = n_root if row == tr else sizes[row]
+            stage = roots is None and row == tr
+            tabs = staged if stage else (items[row], weights[row], recip[row], crow[row],
+                                         ctype[row])
+            n = n_root if stage else sizes[row]
             if n == 0:
                 return "empty", 0, -1, 0
             s = _tile_slot(*tabs[:3], n, x, r, ln, G)
@@ -377,7 +385,7 @@ def _emulate_crush_choose_tiled(T, rule, xs, reweight, G):
             if ftotal >= rule.recurse_tries:
                 return None
 
-    def choose_firstn(x, out, out2):
+    def choose_firstn(x, root, out, out2):
         outpos = 0
         for rep in range(rule.numrep):
             if outpos >= width:
@@ -385,7 +393,7 @@ def _emulate_crush_choose_tiled(T, rule, xs, reweight, G):
             ftotal = 0
             while True:
                 r = rep + ftotal
-                st_, item, row, typ = descend(x, tr, r, rule.want_type)
+                st_, item, row, typ = descend(x, root, r, rule.want_type)
                 if st_ == "dead":
                     break
                 reject, collide = st_ == "empty", False
@@ -423,7 +431,7 @@ def _emulate_crush_choose_tiled(T, rule, xs, reweight, G):
             return item
         return None
 
-    def choose_indep(x, out, out2):
+    def choose_indep(x, root, out, out2):
         out[:] = out2[:] = [UNDEF] * width
         left, ftotal = width, 0
         while left > 0 and ftotal < rule.tries:
@@ -431,7 +439,7 @@ def _emulate_crush_choose_tiled(T, rule, xs, reweight, G):
                 if out[rep] != UNDEF:
                     continue
                 r = rep + rule.numrep * ftotal
-                st_, item, row, typ = descend(x, tr, r, rule.want_type)
+                st_, item, row, typ = descend(x, root, r, rule.want_type)
                 if st_ == "empty":
                     continue
                 if st_ == "dead":
@@ -456,17 +464,21 @@ def _emulate_crush_choose_tiled(T, rule, xs, reweight, G):
             ftotal += 1
 
     rows = []
-    for x in xs:
+    for j, x in enumerate(xs):
+        root = tr if roots is None else roots[j]
+        if root < 0:
+            rows.append([NONE] * width)
+            continue
         slots = [0] * (2 * width)  # the tile's out and out2 in shared memory
         out, out2 = slots[:width], slots[width:]
         res = out2 if rule.leaf else out
         if rule.firstn:
-            placed = choose_firstn(x, out, out2)
+            placed = choose_firstn(x, root, out, out2)
             rows.append([res[i] if i < placed else NONE for i in range(width)])
         else:
-            choose_indep(x, out, out2)
+            choose_indep(x, root, out, out2)
             rows.append([NONE if v == UNDEF else v for v in res])
-    return np.asarray(rows, dtype=np.int64), draws[0]
+    return np.asarray(rows, dtype=np.int64).reshape(len(rows), width), draws[0]
 
 
 def _scalar_rows(name):
@@ -619,3 +631,183 @@ def test_choose_tile_refuses_what_the_kernel_does_not_take():
     rule = mapper_torch_hier.fused_rule(under, under.add_simple_rule(under.root_id(), 0), 3)
     assert (rule.widest, rule.row_gcd) == (gf_cuda.CHOOSE_MAX_SLOTS - 1,) * 2
     assert crush_cuda.choose_tile(mapper_torch_hier.MapTables(under, CPU), rule) == 4
+
+
+# -- a chain's later step: per-lane roots -------------------------------------------
+
+
+def _toy_rule(n1, n2, leaf, result_max):
+    """The toy rack map, carried, with a chained rule."""
+    m = _build_racks()
+    ruleno = _chain_rule(m, n1, n2, leaf=leaf)
+    return carry(m), ruleno, result_max
+
+
+def _toy_chain(n1, n2, leaf, result_max):
+    """The toy rack map with a chained rule, its step that roots each
+    lane at a bucket of the previous step (the width cut to the short
+    region when ``result_max`` cuts one), and the rows it may start
+    from: the racks (and, for a plain choose of devices, the hosts)."""
+    cmap, ruleno, _rm = _toy_rule(n1, n2, leaf, result_max)
+    step = mapper_torch_hier.chain_rules(cmap, ruleno, result_max)[1]
+    short = result_max % n2
+    if short and min(n1, result_max) * n2 > result_max:
+        step = step._replace(width=short)
+    kinds = (2,) if leaf else (1, 2)
+    T = mapper_torch_hier.tables_for(cmap, CPU)
+    rows = [T.row_of[b] for b, bk in sorted(cmap.buckets.items()) if bk.type in kinds]
+    return cmap, step, rows, cmap.get_weights(out=[1, 4], reweight={2: 0.5})
+
+
+def _racks_lrc():
+    """The 8 x 16 x 12 racks map with the rule ``create_erasure_pool``
+    builds for an LRC pool k=8 m=4 l=3 across racks; its second step,
+    rooted at the racks."""
+    from ceph_tpu_torch.tools.gf_matmul_sweep import SEED, crush_choose_maps, lrc_pool_map
+
+    _name, big, _rule, _numrep, weights = crush_choose_maps(np.random.default_rng(SEED))[3]
+    _m, pool, ruleno = lrc_pool_map(big, 8)
+    step = mapper_torch_hier.chain_rules(big, ruleno, pool.size)[1]
+    T = mapper_torch_hier.tables_for(big, CPU)
+    rows = [T.row_of[b] for b, bk in sorted(big.buckets.items()) if bk.type == 2]
+    return big, step, rows, weights
+
+
+# name -> (map, the step, the rows its lanes start from, weights)
+ROOT_CASES = {
+    "toy chooseleaf hosts below racks": lambda: _toy_chain(2, 2, True, 4),
+    "toy choose devices below racks and hosts": lambda: _toy_chain(2, 2, False, 4),
+    "toy short region (2 of 3 hosts)": lambda: _toy_chain(2, 3, True, 5),
+    "racks LRC k=8 m=4 l=3, 4 hosts a rack": _racks_lrc,
+}
+N_ROOTS = 48
+_ROOTS: dict[str, tuple] = {}
+
+
+def _roots_case(name):
+    """The case's lanes: x = 0..N_ROOTS-1, the roots cycling over its
+    rows with every fifth lane -1 (no bucket); and the port's scalar
+    ``crush_choose_indep`` run once per lane from its root bucket, as
+    ``crush_do_rule`` runs a chain's later step (outpos 0, parent_r 0),
+    memoised."""
+    if name not in _ROOTS:
+        cmap, step, rows, weights = ROOT_CASES[name]()
+        roots = [-1 if j % 5 == 4 else rows[(7 * j) % len(rows)] for j in range(N_ROOTS)]
+        bids = sorted(cmap.buckets)
+        want = []
+        for x, root in enumerate(roots):
+            if root < 0:
+                want.append([NONE] * step.width)
+                continue
+            out, out2 = [0] * step.width, [0] * step.width
+            port_mapper.crush_choose_indep(
+                cmap, port_mapper.Workspace(cmap), cmap.buckets[bids[root]], weights, x,
+                step.width, step.numrep, step.want_type, out, 0, step.tries,
+                step.recurse_tries, bool(step.leaf), out2, 0)
+            want.append(out2 if step.leaf else out)
+        _ROOTS[name] = (cmap, step, roots, weights, want)
+    return _ROOTS[name]
+
+
+@pytest.mark.parametrize("name,G", [(n, g) for n in ROOT_CASES for g in gf_cuda.CHOOSE_TILES])
+def test_tiled_walk_from_roots_equals_scalar_indep_per_bucket(name, G):
+    """``crush_choose_roots_kernel``'s walk, every tile, and the kernel's
+    plain version with roots give the scalar mapper's rows; a root of -1
+    gives NONE and draws nothing; the draws are the same at every G."""
+    cmap, step, roots, weights, want = _roots_case(name)
+    T = mapper_torch_hier.tables_for(cmap, CPU)
+    xs = list(range(N_ROOTS))
+    got, draws = _emulate_crush_choose_tiled(T, step, xs, weights, G, roots=roots)
+    assert got.tolist() == want
+    assert draws == _DRAWS.setdefault(f"roots {name}", draws) > 0
+    none, no_draws = _emulate_crush_choose_tiled(T, step, xs[:3], weights, G, roots=[-1] * 3)
+    assert no_draws == 0 and none.tolist() == [[NONE] * step.width] * 3
+    plain = mapper_torch.crush_choose_plain(
+        T, step, torch.tensor(xs, dtype=torch.int32), mapper_torch_hier.reweight_lanes(
+            cmap, weights, CPU), torch.tensor(roots, dtype=torch.int32))
+    assert plain.tolist() == want
+
+
+def _lrc_toy_pool():
+    """An LRC k=4 m=2 l=3 pool across the toy map's racks, its rule as
+    ``create_erasure_pool`` builds it."""
+    from ceph_tpu_torch.osd.osdmap import build_simple
+
+    cmap = carry(_build_racks())
+    m = build_simple(cmap.max_devices, crush=cmap)
+    m.set_erasure_code_profile("lrc", {"plugin": "lrc", "k": "4", "m": "2", "l": "3",
+                                       "ruleset-locality": "rack",
+                                       "ruleset-failure-domain": "host"})
+    pool = m.create_erasure_pool("lrc", "lrc", pg_num=8)
+    return cmap, m.crush.find_rule(pool.crush_ruleset, pool.type, pool.size), pool.size
+
+
+# name -> () -> (map, rule, result_max)
+CHAIN_CASES = {
+    "toy 2 racks x 2 hosts": lambda: _toy_rule(2, 2, True, 4),
+    "toy 2 x 3 cut at 5": lambda: _toy_rule(2, 3, True, 5),
+    "toy 3 x 2 devices": lambda: _toy_rule(3, 2, False, 6),
+    "toy LRC pool k=4 m=2 l=3": _lrc_toy_pool,
+}
+
+
+@pytest.mark.parametrize("name", CHAIN_CASES)
+def test_chain_rules_read_each_step_as_the_interpreter_does(name):
+    """``chain_rules`` reads each step as ``crush_do_rule`` runs it: the
+    first from the take row with leaf tries 1, each later one from roots
+    per lane (take row -1), indep, its own numrep as width and leaf
+    tries ``leaf_tries or 1``; the depth is the take bucket's, and a
+    later step's widest row and row gcd cover the rows below it."""
+    cmap, ruleno, result_max = CHAIN_CASES[name]()
+    steps = mapper_torch_hier.chain_rules(cmap, ruleno, result_max)
+    take, chooses, tries, leaf_tries, vary_r, stable = mapper_torch_hier._rule_shape(
+        cmap, ruleno)
+    assert mapper_torch_hier.fused_rule(cmap, ruleno, result_max) is None
+    assert len(steps) == len(chooses) >= 2
+    T = mapper_torch_hier.MapTables(cmap, CPU)
+    below, todo = set(), [T.row_of[take]]
+    while todo:
+        row = todo.pop()
+        for c in T.rows.child_row[row, :T.sizes[row]].tolist():
+            if c >= 0 and c not in below:
+                below.add(c)
+                todo.append(c)
+    sizes = [T.sizes[r] for r in below]
+    first, *later = steps
+    assert first.take_row == T.row_of[take]
+    assert (first.firstn, first.leaf, first.numrep, first.width, first.tries,
+            first.recurse_tries, first.want_type) == (
+        0, 0, chooses[0].arg1, min(chooses[0].arg1, result_max), tries, 1, chooses[0].arg2)
+    assert (first.widest, first.row_gcd) == (max(sizes + [T.sizes[first.take_row]]),
+                                             np.gcd.reduce(sizes + [T.sizes[first.take_row]]))
+    for step, choose in zip(later, chooses[1:]):
+        assert (step.take_row, step.firstn, step.leaf, step.numrep, step.width, step.tries,
+                step.recurse_tries, step.want_type) == (
+            -1, 0, int(choose.op == CRUSH_RULE_CHOOSELEAF_INDEP), choose.arg1, choose.arg1,
+            tries, leaf_tries or 1, choose.arg2)
+        assert (step.widest, step.row_gcd) == (max(sizes), np.gcd.reduce(sizes))
+    assert {s.depth for s in steps} == {T.depth} and {(s.vary_r, s.stable) for s in steps} == {
+        (vary_r, stable)}
+    if name.startswith("toy LRC"):
+        assert leaf_tries == 5 and later[0].recurse_tries == 5
+
+
+def test_chain_rules_refuse_what_the_kernel_does_not_take():
+    """None for a single-step rule, legacy tunables, a step of no slot
+    and a step wider than the kernel's 32 slots; such a chain takes the
+    step engine and still gives the scalar mapper's rows."""
+    ref = _build_racks()
+    single = ref.add_simple_rule(ref.root_id(), 1, indep=True)
+    chain = _chain_rule(ref, 2, 2)
+    wide = _chain_rule(ref, 1, gf_cuda.CHOOSE_MAX_WIDTH + 1)
+    racks = carry(ref)
+    assert mapper_torch_hier.chain_rules(racks, single, 4) is None
+    assert mapper_torch_hier.chain_rules(racks, chain, 0) is None
+    assert len(mapper_torch_hier.chain_rules(racks, chain, 4)) == 2
+    assert mapper_torch_hier.chain_rules(racks, wide, 40) is None
+    legacy = carry(_build_racks(Tunables.legacy()))
+    assert mapper_torch_hier.chain_rules(legacy, _chain_rule(legacy, 2, 2), 4) is None
+    out = mapper_torch.vec_do_rule(racks, wide, np.arange(6), 40, device="cpu")
+    for x in range(6):
+        scal = ref_mapper.crush_do_rule(ref, wide, x, 40)
+        assert out[x].tolist() == scal + [NONE] * (out.shape[1] - len(scal))

@@ -15,10 +15,11 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from ceph_tpu.crush import encoding as ref_encoding
 from ceph_tpu.crush import mapper as ref_mapper
-from ceph_tpu.crush import mapper_jax
+from ceph_tpu.crush import mapper_jax, mapper_jax_hier
 from ceph_tpu.crush.map import (
     CRUSH_BUCKET_STRAW,
     CRUSH_BUCKET_STRAW2,
@@ -27,6 +28,7 @@ from ceph_tpu.crush.map import (
     CRUSH_RULE_CHOOSE_INDEP,
     CRUSH_RULE_CHOOSELEAF_INDEP,
     CRUSH_RULE_EMIT,
+    CRUSH_RULE_SET_CHOOSELEAF_TRIES,
     CRUSH_RULE_TAKE,
     CrushMap,
     Rule,
@@ -37,6 +39,8 @@ from ceph_tpu.tools import crushtool as ref_crushtool
 from ceph_tpu_torch.crush import encoding, mapper_torch, mapper_torch_hier
 from ceph_tpu_torch.crush.tester import CrushTester
 from ceph_tpu_torch.tools import crushtool
+
+CPU = torch.device("cpu")
 
 # lanes a case; the JAX cases, CrushTester and crushtool share the chooseleaf
 # shape (x = 0..N_X-1, numrep 3) so the reference compiles it once a worker
@@ -222,6 +226,93 @@ def test_chained_rule_with_weights_and_outs():
     hier = mapper_torch_hier.vec_do_rule_hier(carry(m), rule, np.arange(N_X), 4, weight=wv,
                                               device="cpu")
     assert np.array_equal(hier, vec)
+
+
+def _zero_weight_rack():
+    """The rack map with its second rack weighted 0 in the root: a chain's
+    first step leaves a slot NONE, which the second step skips."""
+    m = _build_racks()
+    m.buckets[m.root_id()].item_weights[1] = 0
+    return m
+
+
+def _racks_8x16x12(seed=3):
+    """8 racks x 16 hosts x 12 devices (1536 devices, weights 0.5 to 4):
+    the production-sized map of ``gf_matmul_sweep.crush_choose_maps``."""
+    m = CrushMap()
+    m.type_names.update({1: "host", 2: "rack", 3: "root"})
+    rng = np.random.default_rng(seed)
+    dev, racks = 0, []
+    for rk in range(8):
+        hosts = []
+        for hs in range(16):
+            ws = [int(w) for w in rng.integers(0x8000, 0x40000, size=12)]
+            hosts.append(m.make_bucket(CRUSH_BUCKET_STRAW2, 1, list(range(dev, dev + 12)), ws,
+                                       name=f"rack{rk}-host{hs}"))
+            dev += 12
+        racks.append(m.make_bucket(CRUSH_BUCKET_STRAW2, 2, hosts,
+                                   [m.buckets[b].weight for b in hosts], name=f"rack{rk}"))
+    m.make_bucket(CRUSH_BUCKET_STRAW2, 3, racks, [m.buckets[b].weight for b in racks],
+                  name="default")
+    return m
+
+
+def _lrc_racks_rule(m, groups, per_group):
+    """The rule ``OSDMap.create_erasure_pool`` builds for an LRC profile
+    with ruleset-locality=rack and ruleset-failure-domain=host
+    (``_add_steps_rule``, reference:ErasureCodeLrc.cc:44):
+    SET_CHOOSELEAF_TRIES 5, TAKE, CHOOSE_INDEP racks, CHOOSELEAF_INDEP
+    hosts in each, EMIT."""
+    rule = Rule(len([r for r in m.rules if r]), 3, 1, groups * per_group)
+    rule.step(CRUSH_RULE_SET_CHOOSELEAF_TRIES, 5).step(CRUSH_RULE_TAKE, m.root_id())
+    rule.step(CRUSH_RULE_CHOOSE_INDEP, groups, 2).step(CRUSH_RULE_CHOOSELEAF_INDEP, per_group, 1)
+    rule.step(CRUSH_RULE_EMIT)
+    return m.add_rule(rule)
+
+
+def _chain_case(make, n1, n2, result_max, outs=False, n_x=N_X):
+    def build():
+        m = make()
+        rule = (_lrc_racks_rule(m, n1, n2) if m.max_devices > 100
+                else _chain_rule(m, n1, n2))
+        weights = None
+        if outs:
+            weights = m.get_weights(out=[1, 4, m.max_devices - 3], reweight={2: 0.5, 9: 0.3})
+        return m, rule, result_max, weights, n_x
+    return build
+
+
+# name -> () -> (map, rule, result_max, weights, lanes)
+CHAIN_ROUTE_CASES = {
+    "toy chain": _chain_case(_build_racks, 2, 2, 4),
+    "zero-weight rack": _chain_case(_zero_weight_rack, 2, 2, 4),
+    "outs and reweights": _chain_case(_build_racks, 2, 2, 4, outs=True),
+    "result_max cuts a region": _chain_case(_build_racks, 2, 3, 5, outs=True),
+    "racks map, LRC k=8 m=4 l=3": _chain_case(_racks_8x16x12, 4, 4, 16, outs=True, n_x=200),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHAIN_ROUTE_CASES))
+def test_chain_route_equals_scalar_step_engine_and_jax(name):
+    """A chain that ``chain_rules`` takes runs one routed choose a step
+    (on the CPU the kernel's plain version with per-lane roots): equal
+    to the scalar mapper, the step engine and, on the toy map, the
+    reference's JAX hierarchical path (its 16-slot LRC rule takes about
+    50 s to compile on the CPU, so the racks map's is held against the
+    scalar mapper and the step engine only)."""
+    ref, rule, result_max, weights, n_x = CHAIN_ROUTE_CASES[name]()
+    port = carry(ref)
+    assert mapper_torch_hier.chain_rules(port, rule, result_max) is not None
+    vec = _compare(ref, rule, result_max, weights, n_x=n_x)
+    xs = np.arange(n_x, dtype=np.uint32)
+    step = mapper_torch._step_engine(port, rule, mapper_torch_hier.lanes_of(xs, CPU),
+                                     result_max, weights)
+    assert np.array_equal(step.numpy(), vec)
+    if ref.max_devices < 100:
+        want = mapper_jax_hier.vec_do_rule_hier(ref, rule, xs, result_max, weight=weights)
+        assert np.array_equal(np.asarray(want), vec)
+    if name == "zero-weight rack":
+        assert (vec[:, 2:] == CRUSH_ITEM_NONE).all()
 
 
 def test_supports_rejects_unsupported():
